@@ -1,0 +1,119 @@
+"""Dispatch for the port's kernels.
+
+Each wrapper looks at where its activations live:
+
+* a CUDA tensor launches the hand-written kernel (``csrc/*.cu``) or
+  raises — there is no fallback to the plain version on the card;
+* a CPU tensor takes the plain PyTorch version (``kernels/ref.py``),
+  which is how the tests run on a host without a card.
+
+Each wrapper adds one to its entry of :data:`LAUNCHES` where it
+launches its kernel, and nowhere else, so a run can show that its main
+path went through the kernels (:func:`reset_launches` /
+:func:`launches`).
+
+Serving needs no gradient, so there is no ``autograd.Function`` yet:
+a tensor that requires grad on the card raises ``NotImplementedError``
+(the backward kernels come with the training slice).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import fedpara_matmul as _fm
+from repro_torch.kernels import ref, serve_matmul
+
+KERNELS = ("fedpara_matmul", "w8_matmul", "cache_residual_matmul")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def launches() -> Dict[str, int]:
+    """A copy of the launch counts since the last reset."""
+    return dict(LAUNCHES)
+
+
+def resolve_kind(kind=None) -> str:
+    """Validate a fused-matmul variant name (fedpara | fedpara_tanh |
+    pfedpara); None means fedpara."""
+    if kind is None:
+        return "fedpara"
+    if kind not in ref.KINDS:
+        raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
+    return kind
+
+
+def _on_card(x: torch.Tensor, what: str, *tensors) -> bool:
+    """True for a CUDA activation (launch the kernel), False for a CPU
+    one (plain version); raises for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    if any(t is not None and t.requires_grad for t in (x, *tensors)):
+        raise NotImplementedError(
+            f"{what}: gradients through the CUDA kernels come with the "
+            "training slice (K1 as an autograd.Function with the K3/K4 "
+            "backward kernels); serving runs without autograd")
+    return True
+
+
+def _same_dtype(x: torch.Tensor, out_dtype, what: str) -> None:
+    if out_dtype is not None and out_dtype != x.dtype:
+        raise ValueError(f"{what}: the kernel writes x's dtype ({x.dtype}); "
+                         f"cast x to {out_dtype} first")
+
+
+def fedpara_matmul(x, x1, y1, x2, y2, *, kind=None,
+                   out_dtype=None) -> torch.Tensor:
+    """y = x @ (f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ)), x (B, m) -> (B, n); K1 on the card,
+    W never materialized."""
+    kind = resolve_kind(kind)
+    if not _on_card(x, "fedpara_matmul", x1, y1, x2, y2):
+        return ref.fedpara_matmul_ref(x, x1, y1, x2, y2, kind=kind,
+                                      out_dtype=out_dtype)
+    _same_dtype(x, out_dtype, "fedpara_matmul")
+    y = _fm.fedpara_matmul(x, x1, y1, x2, y2, kind=kind)
+    LAUNCHES["fedpara_matmul"] += 1
+    return y
+
+
+def w8_matmul(x, w, scale=None, *, out_dtype=None) -> torch.Tensor:
+    """y = (x @ W)·s against an int8 (with ``scale``) or fp16
+    (``scale=None``) weight cache; K8 on the card, the cache widened only
+    inside the kernel's tiles."""
+    if not _on_card(x, "w8_matmul"):
+        return ref.w8_matmul_ref(x, w, scale, out_dtype=out_dtype)
+    _same_dtype(x, out_dtype, "w8_matmul")
+    y = serve_matmul.w8_matmul(x, w, scale)
+    LAUNCHES["w8_matmul"] += 1
+    return y
+
+
+def cache_residual_matmul(x, w, scale, x2, y2, *, out_dtype=None
+                          ) -> torch.Tensor:
+    """pFedPara serve matmul y = (x @ (W ⊙ (X2Y2ᵀ + 1)))·s against the
+    shared W1 cache; x (B, m) for one user or (U, t, m) for U users in
+    one launch (K9/K10 on the card)."""
+    if not _on_card(x, "cache_residual_matmul", x2, y2):
+        return ref.cache_residual_ref(x, w, scale, x2, y2,
+                                      out_dtype=out_dtype)
+    _same_dtype(x, out_dtype, "cache_residual_matmul")
+    y = serve_matmul.cache_residual_matmul(x, w, scale, x2, y2)
+    LAUNCHES["cache_residual_matmul"] += 1
+    return y
+
+
+def fedpara_gram_decode(x, x1, y1, x2, y2, *, kind=None, out_dtype=None
+                        ) -> torch.Tensor:
+    """Decode-batch fused matmul via the Hadamard-Gram identity (plain
+    torch einsums on every device; no (m, n) intermediate)."""
+    return serve_matmul.fedpara_gram_decode(
+        x, x1, y1, x2, y2, kind=resolve_kind(kind), out_dtype=out_dtype)

@@ -1,0 +1,152 @@
+"""The port's kernel wrappers on the CPU (their plain versions) held
+against the reference's Pallas kernels in interpret mode, as
+``tests/test_serve_kernels.py`` and ``tests/test_kernels.py`` run them:
+fp32, atol = rtol = 2e-4, aligned and ragged shapes.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py``
+holds each against these same plain versions there); here a wrapper
+takes its plain version because its tensor lies on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import serve_matmul as jserve
+from repro.nn.layers import quantize_int8 as jquantize
+
+from repro_torch.kernels import ops
+from repro_torch.nn.layers import quantize_int8
+
+TOL = dict(atol=2e-4, rtol=2e-4)
+SHAPES = [
+    (3, 100, 72, 5),       # ragged everywhere
+    (8, 64, 64, 4),
+    (1, 384, 128, 32),     # one decode row
+    (33, 128, 300, 7),
+]
+
+
+def _mats(seed, B, m, n, r, U=0):
+    rng = np.random.default_rng(seed)
+    lead = (U,) if U else ()
+    x = rng.standard_normal((*lead, B, m)).astype(np.float32)
+    fac = [(0.2 * rng.standard_normal(s)).astype(np.float32)
+           for s in ((m, r), (n, r), (m, r), (n, r))]
+    return x, fac
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _cache(w, quant):
+    node = jquantize(jnp.asarray(w))
+    if quant:
+        return np.asarray(node["w_q"]), np.asarray(node["scale"])
+    return np.asarray(w, np.float16), None
+
+
+@pytest.mark.parametrize("B,m,n,r", SHAPES)
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp16"])
+def test_w8_matmul_matches_reference_kernel(B, m, n, r, quant):
+    x, (x1, y1, x2, y2) = _mats(B + m, B, m, n, r)
+    w = np.asarray(jops.fedpara_compose_ref(x1, y1, x2, y2,
+                                            out_dtype=jnp.float32))
+    wq, scale = _cache(w, quant)
+    want = jops.w8_matmul(x, wq, scale, interpret=True, out_dtype=jnp.float32)
+    got = ops.w8_matmul(_t(x), _t(wq), None if scale is None else _t(scale))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,m,n,r", SHAPES)
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp16"])
+def test_cache_residual_single_user_matches_reference_kernel(B, m, n, r,
+                                                             quant):
+    x, (x1, y1, x2, y2) = _mats(7 * B + m, B, m, n, r)
+    wq, scale = _cache(x1 @ y1.T, quant)
+    want = jops.cache_residual_matmul(x, wq, scale, x2, y2, interpret=True,
+                                      out_dtype=jnp.float32)
+    got = ops.cache_residual_matmul(_t(x), _t(wq),
+                                    None if scale is None else _t(scale),
+                                    _t(x2), _t(y2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("U,t", [(1, 1), (1, 4), (3, 2), (3, 5)])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp16"])
+def test_cache_residual_many_users_matches_reference_kernel(U, t, quant):
+    m, n, r = 100, 72, 5
+    x, (x1, y1, _, _) = _mats(U * 10 + t, t, m, n, r, U=U)
+    rng = np.random.default_rng(U + t)
+    ux2 = (0.2 * rng.standard_normal((U, m, r))).astype(np.float32)
+    uy2 = (0.2 * rng.standard_normal((U, n, r))).astype(np.float32)
+    wq, scale = _cache(x1 @ y1.T, quant)
+    want = jops.cache_residual_matmul(x, wq, scale, ux2, uy2, interpret=True,
+                                      out_dtype=jnp.float32)
+    got = ops.cache_residual_matmul(_t(x), _t(wq),
+                                    None if scale is None else _t(scale),
+                                    _t(ux2), _t(uy2))
+    assert got.shape == (U, t, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,m,n,r", SHAPES)
+@pytest.mark.parametrize("kind", ["fedpara", "fedpara_tanh", "pfedpara"])
+def test_fedpara_matmul_matches_reference_kernel(B, m, n, r, kind):
+    x, fac = _mats(B * 3 + n, B, m, n, r)
+    want = jops.fedpara_matmul(x, *fac, kind=kind, interpret=True,
+                               out_dtype=jnp.float32)
+    got = ops.fedpara_matmul(_t(x), *map(_t, fac), kind=kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["fedpara", "pfedpara"])
+@pytest.mark.parametrize("users", [0, 3])
+def test_gram_decode_matches_reference(kind, users):
+    m, n, r = 100, 72, 5
+    x, (x1, y1, x2, y2) = _mats(11, 2, m, n, r, U=users)
+    if users:
+        rng = np.random.default_rng(2)
+        x2 = (0.2 * rng.standard_normal((users, m, r))).astype(np.float32)
+        y2 = (0.2 * rng.standard_normal((users, n, r))).astype(np.float32)
+    want = jserve.fedpara_gram_decode(x, x1, y1, x2, y2, kind=kind)
+    got = ops.fedpara_gram_decode(*map(_t, (x, x1, y1, x2, y2)), kind=kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gram_decode_rejects_tanh():
+    a = torch.zeros(2, 4)
+    with pytest.raises(ValueError):
+        ops.fedpara_gram_decode(a, a.T, a.T, a.T, a.T, kind="fedpara_tanh")
+
+
+@pytest.mark.parametrize("shape", [(100, 72), (3, 64, 96)])
+def test_quantize_int8_matches_reference(shape):
+    w = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    want = jax.tree.map(np.asarray, jquantize(jnp.asarray(w)))
+    got = quantize_int8(_t(w))
+    assert got["w_q"].dtype == torch.int8 and got["scale"].dtype == torch.float32
+    np.testing.assert_allclose(got["scale"].numpy(), want["scale"], rtol=1e-7,
+                               atol=0)
+    # codes equal except where w/scale sits on an exact .5 tie
+    diff = got["w_q"].numpy().astype(np.int32) != want["w_q"].astype(np.int32)
+    ratio = w / want["scale"]
+    assert np.all(np.abs(np.abs(ratio[diff] % 1.0) - 0.5) < 1e-4)
+
+
+def test_launch_counts_stay_zero_on_the_cpu_path():
+    ops.reset_launches()
+    x = torch.zeros(2, 8)
+    ops.w8_matmul(x, torch.zeros(8, 4, dtype=torch.int8), torch.ones(1, 4))
+    ops.fedpara_matmul(x, *(torch.zeros(d, 2) for d in (8, 4, 8, 4)))
+    assert ops.launches() == {k: 0 for k in ops.KERNELS}
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    x = torch.zeros(2, 8, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.w8_matmul(x, torch.zeros(8, 4, dtype=torch.int8, device="meta"))
