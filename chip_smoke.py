@@ -1,20 +1,23 @@
 """Chip smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives the port's serving path (``repro_torch``) at qwen3-8b's full
-width on the card through its hand-written CUDA kernels, and holds every
-kernel against its plain PyTorch version. Phases, each printed on its
-own line; any failed check raises, so the script exits non-zero:
+Drives the port's two paths (``repro_torch``) on the card through its
+hand-written CUDA kernels: serving at qwen3-8b's full width, and FL
+training of the paper's MLP at its full width; holds every kernel
+against its plain PyTorch version. Phases, each printed on its own
+line; any failed check raises, so the script exits non-zero:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-   print the build time and the card's name and power limit;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
+   one process per source, all at once); print the build time and the
+   card's name and power limit;
 2. every kernel against its plain version at every full-width qwen3-8b
-   shape, bf16 at 4 rows (decode) and 512 rows (prefill); the fp32
-   builds that phases 4 and 6 run (K1, K8 with int8 and fp16 caches) at
-   the same shapes; ragged fp32 shapes; median time of the bf16 cases
-   (CUDA events, L2 flushed before each run), the bound at that shape,
-   the plain version's time and one PyTorch library call's time
-   (``torch.matmul`` on the dequantized / composed W, a yardstick the
-   port never calls);
+   shape, bf16 at 4 rows (decode) and 512 rows (prefill; the backward
+   kernels K3 and K4 at 512 rows only); the fp32 builds that the other
+   phases run (K1, K3, K4, K8 with int8 and fp16 caches) at the same
+   shapes; ragged fp32 shapes and the FL MLP's two shapes; median time
+   of the bf16 cases (CUDA events, L2 flushed before each run), the
+   bound at that shape, the plain version's time and one PyTorch library
+   call's time where one call computes the function (``torch.matmul``
+   on the dequantized / composed W, a yardstick the port never calls);
 3. 36-layer qwen3-8b, ``kind=fedpara``, precompose int8: batch 4,
    prompt 128, 16 greedy tokens through K8;
 4. the same weights in fused mode (K1 on prefill, the Gram identity on
@@ -23,7 +26,13 @@ own line; any failed check raises, so the script exits non-zero:
    against each user's merge-then-plain logits (fp32);
 6. 2 layers: the engine on the card against the same engine on the
    host (plain versions), same weights;
-7. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
+7. one full-width qwen3-8b layer's 7 projections, 512 rows, forward and
+   backward through ``FedParaMatmul`` (K1, K3, K4) against plain
+   autograd (materialize W, then matmul), fp32;
+8. the FL training path: ``launch/train.py --mode fl --model mlp
+   --rounds 3 --clients 20 --use-kernels`` on the card against the same
+   run on the host, from the same initial weights;
+9. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--quick`` builds and checks the kernels at two shapes and stops;
@@ -50,13 +59,20 @@ SHAPES = {"wq": (4096, 4096, 160), "wk": (4096, 1024, 70),
           "w_down": (12288, 4096, 211)}
 DISTINCT = {"wq": SHAPES["wq"], "wk": SHAPES["wk"],
             "w_gate": SHAPES["w_gate"], "w_down": SHAPES["w_down"]}
+# the FL MLP's factorized layers (784 -> 256 -> 10, gamma 0.3) at batch 64
+MLP_SHAPES = {"fc1": (64, 784, 256, 40), "fc2": (64, 256, 10, 4)}
 REPLACES = {
     "fedpara_matmul": "src/repro/kernels/fedpara_matmul.py:45 _kernel",
+    "fedpara_dx": "src/repro/kernels/fedpara_grad.py:80 _dx_body",
+    "fedpara_dfactors": "src/repro/kernels/fedpara_grad.py:191 "
+                        "_dfactors_body",
     "w8_matmul": "src/repro/kernels/serve_matmul.py:48 _w8_kernel",
     "cache_residual_matmul": "src/repro/kernels/serve_matmul.py:68 "
                              "_resid_kernel + :92 _resid_kernel_users",
 }
 SOURCES = {"fedpara_matmul": "src/repro_torch/csrc/fedpara_matmul.cu",
+           "fedpara_dx": "src/repro_torch/csrc/fedpara_matmul.cu",
+           "fedpara_dfactors": "src/repro_torch/csrc/fedpara_grad.cu",
            "w8_matmul": "src/repro_torch/csrc/serve_matmul.cu",
            "cache_residual_matmul": "src/repro_torch/csrc/serve_matmul.cu"}
 
@@ -72,6 +88,7 @@ def check(cond: bool, msg: str) -> None:
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
+    check(float(w.abs().max()) > 0, "all-zero reference: the check is void")
     return float((g - w).abs().max() / (w.abs().max() + 1e-12))
 
 
@@ -134,6 +151,19 @@ def fedpara_ops(rows: int, m: int, n: int, r: int, kind: str,
                key=lambda c: bound_ms(0.0, c["f16"], c["f32"])[0])
 
 
+def dfactors_ops(rows: int, m: int, n: int, r: int, x_bits: int = 16) -> dict:
+    """The operations of all four factor gradients (K4, both sides):
+    dW = xᵀdy once (2·rows·mn, in x's type), W1 and W2 composed once
+    (4mnr fp32) and the four rank-r contractions G1·Y1, G2·Y2, G1ᵀ·X1,
+    G2ᵀ·X2 (8mnr fp32); the elementwise chain rule (a few per weight)
+    is left out. No cheaper route is known at these row counts: the
+    Gram-style expansion costs 2·rows·r²·n per contraction."""
+    dw = 2.0 * rows * m * n
+    if x_bits == 16:
+        return {"f16": dw, "f32": 12.0 * m * n * r}
+    return {"f16": 0.0, "f32": dw + 12.0 * m * n * r}
+
+
 # ------------------------------------------------------------ phase 1
 
 def phase_build():
@@ -156,7 +186,7 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi: " + smi.stderr.strip()
     print(card, flush=True)
-    return card
+    return card, {"seconds": secs, "built": sorted(built), "ptxas": ptxas}
 
 
 # ------------------------------------------------------------ phase 2
@@ -177,18 +207,22 @@ def phase_kernels(clock: Clock, quick: bool):
     gen = torch.Generator(device="cuda").manual_seed(123)
     shapes = dict(list(DISTINCT.items())[:1]) if quick else DISTINCT
     rows_list = (4,) if quick else (4, 512)
-    cases = {"w8_matmul": [], "fedpara_matmul": [],
-             "cache_residual_matmul": []}
+    cases = {"w8_matmul": [], "fedpara_matmul": [], "fedpara_dx": [],
+             "fedpara_dfactors": [], "cache_residual_matmul": []}
 
     def record(kernel, name, fn, plain, lib, tol, nbytes, f16=0.0, f32=0.0,
                timed=True):
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{kernel} {name}: non-finite")
-        err = rel_err(got, want)
+        if not isinstance(got, tuple):   # K4 returns one tensor per factor
+            got, want = (got,), (want,)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{kernel} {name}: non-finite")
+        err = max(rel_err(g, w) for g, w in zip(got, want))
         check(err <= tol, f"{kernel} {name}: rel err {err:.3e} > {tol}")
         row = {"case": name, "rel_err": err,
-               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
                "tol": tol}
         b, by = bound_ms(nbytes, f16, f32)
         row.update(bound_ms=b, bound_by=by)
@@ -281,6 +315,8 @@ def phase_kernels(clock: Clock, quick: bool):
                        io32 + 4 * 2 * r * (m + n), f16=fo["f16"],
                        f32=fo["f32"], timed=False)
             del x32
+        if not quick:
+            _backward_cases(record, gen, pname, m, n, r, (x1, y1, x2, y2))
         # K9: one user, 2-D activations, fp16 cache
         x = torch.randn((4, m), generator=gen, device="cuda").to(torch.bfloat16)
         w1h = (x1 @ y1.T).half()
@@ -294,6 +330,48 @@ def phase_kernels(clock: Clock, quick: bool):
                f16=8.0 * m * n, f32=2.0 * m * n * r)
         del w1h, w1u, wq, w16, wdq
 
+    # K3 and K4 at ragged shapes and at the FL MLP's two shapes (K4's fc2
+    # side y splits its sweep over 8 blocks), all kinds, fp32 as the FL
+    # path runs; K1 at the MLP's shapes too (the ragged loop below holds
+    # it at the ragged ones); the MLP's fedpara cases are timed.
+    mlp = tuple(MLP_SHAPES.values())
+    for rows, m, n, r in ((3, 1000, 1000, 37), (517, 130, 97, 5), *mlp):
+        fac = _factors(gen, m, n, r)
+        x = torch.randn((rows, m), generator=gen, device="cuda")
+        dy = torch.randn((rows, n), generator=gen, device="cuda")
+        io = 4 * rows * (m + n)
+        for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+            tag = f"fp32 {rows}x{m}x{n} r={r} {kind}"
+            timed = (rows, m, n, r) in mlp and kind == "fedpara"
+            wt = (ref.fedpara_compose_ref(*fac, kind=kind,
+                                          out_dtype=torch.float32)
+                  if timed else None)
+            fo = fedpara_ops(rows, m, n, r, kind, x_bits=32)
+            if (rows, m, n, r) in mlp:
+                record("fedpara_matmul", tag,
+                       lambda kind=kind: ops.fedpara_matmul(x, *fac,
+                                                            kind=kind),
+                       lambda kind=kind: ref.fedpara_matmul_ref(x, *fac,
+                                                                kind=kind),
+                       (lambda wt=wt: torch.matmul(x, wt)) if timed else None,
+                       1e-5, io + 8 * r * (m + n), f16=fo["f16"],
+                       f32=fo["f32"], timed=timed)
+            record("fedpara_dx", tag,
+                   lambda kind=kind: ops.fedpara_dx(dy, *fac, kind=kind),
+                   lambda kind=kind: ref.fedpara_dx_ref(dy, *fac, kind=kind),
+                   (lambda wt=wt: torch.matmul(dy, wt.T)) if timed else None,
+                   1e-5, io + 8 * r * (m + n), f16=fo["f16"], f32=fo["f32"],
+                   timed=timed)
+            do = dfactors_ops(rows, m, n, r, x_bits=32)
+            record("fedpara_dfactors", tag,
+                   lambda kind=kind: _both_sides(ops.fedpara_dfactors, x, dy,
+                                                 fac, kind),
+                   lambda kind=kind: _both_sides(ref.fedpara_dfactors_ref, x,
+                                                 dy, fac, kind),
+                   None, 1e-5, io + 16 * r * (m + n), f16=do["f16"],
+                   f32=do["f32"], timed=timed)
+    if quick:
+        return cases
     # ragged fp32 shapes: every edge masked, tighter tolerance
     for rows, m, n, r in ((3, 1000, 1000, 37), (517, 130, 97, 5)):
         x1, y1, x2, y2 = _factors(gen, m, n, r)
@@ -320,6 +398,50 @@ def phase_kernels(clock: Clock, quick: bool):
                                               ux2, uy2), None, 1e-5, 0,
                timed=False)
     return cases
+
+
+def _both_sides(fn, x, dy, fac, kind):
+    """K4's function: (dX1, dX2, dY1, dY2), one call per side."""
+    return (*fn(x, dy, *fac, side="x", kind=kind),
+            *fn(x, dy, *fac, side="y", kind=kind))
+
+
+def _backward_cases(record, gen, pname, m, n, r, fac):
+    """K3 and K4 at one full-width projection, 512 rows (a prefill-sized
+    training batch): bf16, all kinds, fedpara timed (plain version and,
+    for K3, one ``torch.matmul`` on the composed W); fp32 untimed at the
+    fp32 tolerance."""
+    from repro_torch.kernels import ops, ref
+
+    rows = 512
+    tag = f"{pname} {m}x{n} r={r} rows={rows}"
+    io = rows * (m + n) * 2
+    for dt, tol, tdt in ((torch.bfloat16, 1e-2, ""), (torch.float32, 1e-5,
+                                                      " fp32")):
+        x = torch.randn((rows, m), generator=gen, device="cuda").to(dt)
+        dy = torch.randn((rows, n), generator=gen, device="cuda").to(dt)
+        bits = 16 if dt == torch.bfloat16 else 32
+        io_dt = io * bits // 16
+        for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+            timed = kind == "fedpara" and dt == torch.bfloat16
+            wt = (ref.fedpara_compose_ref(*fac, kind=kind, out_dtype=dt)
+                  if timed else None)
+            fo = fedpara_ops(rows, m, n, r, kind, x_bits=bits)
+            record("fedpara_dx", f"{tag}{tdt} {kind}",
+                   lambda kind=kind: ops.fedpara_dx(dy, *fac, kind=kind),
+                   lambda kind=kind: ref.fedpara_dx_ref(dy, *fac, kind=kind),
+                   (lambda wt=wt: torch.matmul(dy, wt.T)) if timed else None,
+                   tol, io_dt + 8 * r * (m + n), f16=fo["f16"], f32=fo["f32"],
+                   timed=timed)
+            del wt
+            do = dfactors_ops(rows, m, n, r, x_bits=bits)
+            record("fedpara_dfactors", f"{tag}{tdt} {kind}",
+                   lambda kind=kind: _both_sides(ops.fedpara_dfactors, x, dy,
+                                                 fac, kind),
+                   lambda kind=kind: _both_sides(ref.fedpara_dfactors_ref, x,
+                                                 dy, fac, kind),
+                   None, tol, io_dt + 16 * r * (m + n), f16=do["f16"],
+                   f32=do["f32"], timed=timed)
 
 
 # ------------------------------------------------------------ phases 3-6
@@ -397,21 +519,33 @@ def phase_serve(params, measurements):
 
 
 def _profile_decode(eng, prompts, steps: int = 2):
-    """Device-busy share of decode: the CUDA time ``torch.profiler``
-    records for ``steps`` decode steps against their host wall time,
-    and the kernels that take the device time ("not measured" when the
-    profiler sees no device activity)."""
+    """Device-busy share of decode: :func:`_profile` over ``steps``
+    decode steps."""
     B, S = prompts.shape
     cache = eng.init_cache(B, S + steps)
     cache, logits = eng.prefill(prompts, cache)
     tok = torch.argmax(logits, -1)[:, None]
     torch.cuda.synchronize()
+
+    def run():
+        c = cache
+        for i in range(steps):
+            _, c = eng.decode_step(c, tok, S + i)
+
+    return {"steps": steps, **_profile(run)}
+
+
+def _profile(fn):
+    """Device-busy share of ``fn()``: the CUDA time ``torch.profiler``
+    records against the host wall time, and the kernels that take the
+    device time ("not measured" when the profiler sees no device
+    activity)."""
+    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, cache = eng.decode_step(cache, tok, S + i)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -422,7 +556,7 @@ def _profile_decode(eng, prompts, steps: int = 2):
     if device_us <= 0:
         return {"device_busy_share": "not measured", "wall_us": wall_us}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "wall_us": wall_us, "device_us": device_us,
+    return {"wall_us": wall_us, "device_us": device_us,
             "device_busy_share": device_us / wall_us,
             "top_device_us": [[k[:80], v] for k, v in top]}
 
@@ -551,6 +685,121 @@ def phase_card_vs_host(measurements):
     measurements["card_vs_host"] = errs
 
 
+# ------------------------------------------------------------ phases 7-8
+
+def phase_layer_grad(measurements):
+    """One full-width qwen3-8b layer's 7 projections at 512 rows, fp32:
+    forward and backward through ``FedParaMatmul`` (K1, then K3 and K4)
+    against plain autograd through the materialized W, on the same
+    inputs and output cotangents. Tolerance 1e-4 relative: fp32 sums of
+    up to 12288 x 512 terms taken in another order (the kernels' checks
+    in phase 2 measure ~1e-6)."""
+    from repro_torch.core import parameterization as par
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(321)
+    errs, fused_ms, plain_ms = {}, 0.0, 0.0
+    for pname, (m, n, r) in SHAPES.items():
+        fac = [t.requires_grad_() for t in _factors(gen, m, n, r)]
+        x = torch.randn((512, m), generator=gen, device="cuda"
+                        ).requires_grad_()
+        cot = torch.randn((512, n), generator=gen, device="cuda")
+        leaves = [x, *fac]
+
+        def fused():
+            y = ops.fedpara_matmul(x, *fac, kind="fedpara")
+            return torch.autograd.grad(y, leaves, cot)
+
+        def plain():
+            w = par.materialize(dict(zip(("x1", "y1", "x2", "y2"), fac)),
+                                "fedpara")
+            return torch.autograd.grad(x @ w, leaves, cot)
+
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        errs[pname] = [rel_err(g, w) for g, w in zip(got, want)]
+        check(max(errs[pname]) < 1e-4,
+              f"layer grads {pname}: rel errs {errs[pname]}")
+        for fn, acc in ((fused, "fused"), (plain, "plain")):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            if acc == "fused":
+                fused_ms += a.elapsed_time(b)
+            else:
+                plain_ms += a.elapsed_time(b)
+    out = {"rel_errs": errs, "fused_fwd_bwd_ms": fused_ms,
+           "plain_autograd_ms": plain_ms, "rows": 512, "dtype": "fp32"}
+    say("layer_grad", **out)
+    measurements["layer_grad"] = out
+
+
+def phase_train(measurements):
+    """The FL main path: ``launch/train.py --mode fl --model mlp --rounds 3
+    --clients 20 --use-kernels`` (``--lr 0.05`` so the weights move) on
+    the card, and the same run on the host with ``--device cpu``, both
+    from one set of initial weights drawn on the host and passed with
+    ``--init-params``. Masks, sampled clients and wire bytes must be
+    equal; loss and parameters within 1e-4, the reference's engine
+    tolerance (fp32 sums in another order on each side); eval within
+    2e-3, two of its 1000 test predictions, since one argmax flipped at
+    a near-tie moves it by 1e-3. Returns the card run's launch counts."""
+    from repro_torch import interop
+    from repro_torch.configs.base import ParamCfg
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.nn import recurrent as rec
+    from repro_torch.tree import tree_leaves
+
+    cfg = rec.MLPConfig(in_dim=784, hidden=256, classes=10,
+                        param=ParamCfg(kind="fedpara", gamma=0.3,
+                                       min_dim_for_factorization=8))
+    init = rec.init_mlp_model(torch.Generator().manual_seed(0), cfg)
+    shapes = {k: tuple(v.shape) for k, v in init["fc1"].items()}
+    check(shapes == {"x1": (784, 40), "y1": (256, 40), "x2": (784, 40),
+                     "y2": (256, 40)}, f"fc1 factors {shapes}")
+    path = REPO / "build" / "chip_smoke" / "mlp_init.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    interop.save_npz(init, str(path))
+    argv = ["--mode", "fl", "--model", "mlp", "--rounds", "3", "--clients",
+            "20", "--use-kernels", "--lr", "0.05", "--init-params", str(path)]
+    ops.reset_launches()
+    card = train.main(argv)
+    counts = ops.launches()
+    host = train.main(argv + ["--device", "cpu"])
+    for kernel in ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors"):
+        check(counts[kernel] > 0, f"{kernel} never launched in FL training")
+    for a, b in zip(card["server"].history, host["server"].history):
+        for k in ("arrived_mask", "sampled", "down_bytes", "up_bytes",
+                  "comm_gb"):
+            check(a[k] == b[k], f"round {a['round']} {k}: {a[k]} != {b[k]}")
+    rc, rh = card["record"], host["record"]
+    loss_d = abs(rc["mean_loss"] - rh["mean_loss"])
+    eval_d = abs(rc["eval"] - rh["eval"])
+    cp = tree_leaves(card["server"].global_params)
+    hp = tree_leaves(host["server"].global_params)
+    param_d = max(float((a.cpu() - b).abs().max()) for a, b in zip(cp, hp))
+    moved = max(float((a.cpu() - b).abs().max()) for a, b in
+                zip(tree_leaves(card["server"].global_params["fc1"]),
+                    tree_leaves(init["fc1"])))
+    check(moved > 1e-3, f"training moved fc1 by only {moved}")
+    check(loss_d < 1e-4, f"card vs host mean_loss differ by {loss_d}")
+    check(param_d < 1e-4, f"card vs host params differ by {param_d}")
+    check(eval_d <= 2e-3, f"card vs host eval differ by {eval_d}")
+    out = {"round_seconds_card": card["round_seconds"],
+           "round_seconds_host": host["round_seconds"],
+           "launches": counts, "record": rc, "loss_diff": loss_d,
+           "eval_diff": eval_d, "param_maxdiff": param_d,
+           "fc1_moved": moved,
+           "round_profile": _profile(card["server"].run_round)}
+    say("fl_train", **out)
+    measurements["train"] = out
+    return counts
+
+
 # ------------------------------------------------------------ main
 
 def _layer_sums(cases):
@@ -573,8 +822,9 @@ def _layer_sums(cases):
             by = {"bytes": 0.0, "operations": 0.0}
             for shape in SHAPES.values():
                 row = by_shape[shape]
-                for k in tot:
-                    tot[k] += row[k]
+                for k in tot:   # a kernel with no library call keeps None
+                    tot[k] = (None if tot[k] is None or row[k] is None
+                              else tot[k] + row[k])
                 by[row["bound_by"]] += row["bound_ms"]
             tot["max_abs_err"] = max(r["max_abs_err"]
                                      for r in by_shape.values())
@@ -591,6 +841,11 @@ def _summary(sums, launches):
                           "cache, 4 rows (a decode step)"),
             "fedpara_matmul": ("rows=512 fedpara", "one layer's 7 "
                                "projections, 512 rows (prefill)"),
+            "fedpara_dx": ("rows=512 fedpara", "one layer's 7 projections, "
+                           "512 rows, bf16"),
+            "fedpara_dfactors": ("rows=512 fedpara", "one layer's 7 "
+                                 "projections, 512 rows, bf16, both sides "
+                                 "(2 launches per projection)"),
             "cache_residual_matmul": ("rows=4 users=4 int8",
                                       "one layer's 7 projections, 4 users x "
                                       "1 row (a decode step)")}
@@ -624,10 +879,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card = phase_build()
+    card, build_info = phase_build()
     clock = Clock(reps=5)
     cases = phase_kernels(clock, args.quick)
-    measurements = {"card": card, "kernels": cases}
+    measurements = {"card": card, "build": build_info, "kernels": cases}
     if not args.quick:
         from repro_torch.launch.serve import seeded_params
 
@@ -644,6 +899,11 @@ def main() -> int:
             launches[k] += v
         torch.cuda.empty_cache()
         phase_card_vs_host(measurements)
+        torch.cuda.empty_cache()
+        phase_layer_grad(measurements)
+        torch.cuda.empty_cache()
+        for k, v in phase_train(measurements).items():
+            launches[k] += v
         missing = [k for k in ops.KERNELS if launches[k] == 0]
         check(not missing, f"kernels never launched on the main path: "
               f"{missing}")

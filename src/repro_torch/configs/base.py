@@ -23,6 +23,9 @@ class ParamCfg:
                                    # Hadamard-Gram identity instead of the
                                    # fused tile kernel (the serve cost model
                                    # sets it; 0 = never)
+    use_kernels: bool = False      # train through the fused differentiable
+                                   # matmul (K1 forward, K3/K4 backward);
+                                   # the reference's ``use_pallas``
 
 
 @dataclass(frozen=True)

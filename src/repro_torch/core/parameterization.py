@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core import rank_policy
+from repro_torch.tree import tree_leaves
 
 ParamTree = Dict[str, Any]
 
@@ -153,3 +154,9 @@ def factor_spec(node: Any) -> Optional[Dict[str, Any]]:
         return None
     return {"kind": "matrix", "m": int(x.shape[0]), "n": int(y.shape[0]),
             "r": int(x.shape[-1])}
+
+
+def num_params(tree: Any) -> int:
+    """Total scalar count over a tree of tensors (an exact integer)."""
+    return int(sum(a.numel() for a in tree_leaves(tree)
+                   if isinstance(a, torch.Tensor)))

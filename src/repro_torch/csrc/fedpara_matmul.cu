@@ -5,6 +5,8 @@
 //
 // Replaces (TPU, Pallas):
 //   K1  src/repro/kernels/fedpara_matmul.py:_kernel            -> repro_fedpara_matmul
+//   K3  src/repro/kernels/fedpara_grad.py:_dx_body             -> repro_fedpara_dx
+//       (the same kernel on the transposed weight; see repro_fedpara_dx)
 //
 // What bounds it on an H100: operations. Each (32 x 32) W tile costs
 // two rank-r products, 4·r FLOPs per weight (r = 160, 70, 211 at
@@ -126,6 +128,20 @@ int repro_fedpara_matmul(const void* x, const void* x1, const void* y1, const vo
   if (x_dtype == X_BF16)
     return launch_kind<__nv_bfloat16>(kind, x, x1, y1, x2, y2, y, rows, m, n, r, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K3, the input gradient of the fused matmul (replaces
+// src/repro/kernels/fedpara_grad.py:_dx_body):
+//   dx (rows, m) = dy (rows, n) · Wᵀ,  Wᵀ = f1(Y1 X1ᵀ) ⊙ f2(Y2 X2ᵀ),
+// because f1 and f2 act elementwise and so commute with the transpose.
+// dy takes x's place and (Y1, X1, Y2, X2) take (X1, Y1, X2, Y2)'s: the
+// K1 kernel above composes each Wᵀ tile on chip, casts it to dy's dtype
+// (as _dx_body casts its tile) and contracts it; W is never stored.
+// dx has dy's dtype. Returns the launch's cudaError_t.
+int repro_fedpara_dx(const void* dy, const void* x1, const void* y1, const void* x2,
+                     const void* y2, void* dx, int rows, int m, int n, int r, int kind,
+                     int x_dtype, void* stream) {
+  return repro_fedpara_matmul(dy, y1, x1, y2, x2, dx, rows, n, m, r, kind, x_dtype, stream);
 }
 
 }  // extern "C"

@@ -1,2 +1,3 @@
-"""Federated-learning pieces of the port (serving needs only the
-pFedPara split so far)."""
+"""Federated learning (PyTorch): the sequential FL server and its
+client, strategies, identity codec, byte accounting, arrival model and
+data seeds. Start at :class:`repro_torch.fl.server.FLServer`."""

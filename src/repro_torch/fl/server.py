@@ -1,0 +1,416 @@
+"""FL server (PyTorch): sampling, straggler-aware aggregation,
+personalization — the counterpart of the reference's
+``repro/fl/server.py`` with its sequential engine.
+
+Each round draws, host side and with the reference's numpy draws in the
+reference's order (``_select_round``: ``rng.choice``, then
+``rng.lognormal`` in ``_simulate_latency``, then ``rng.rand``), the
+sampled clients, their simulated latencies and dropouts, and the
+boolean arrived-mask over the sampled order: a client participates iff
+it survived dropout, beat the straggler deadline and is among the first
+``n_target`` arrivals. The mask equals the reference's bit for bit.
+The arrived clients then train one after another (``local_update``),
+their uploads are averaged weighted by local dataset size, the
+strategy's server update runs, and ``CommLog`` charges the identity
+codec's exact wire bytes.
+
+Personalization modes:
+  none      — vanilla FL (upload/download everything)
+  pfedpara  — paper §2.3: only x1/y1 (the global halves) are
+              transferred; x2/y2 persist per client
+  fedper    — the last layer stays local
+  local     — local-only baseline (no aggregation)
+
+Not ported yet, and refused at construction with the ROADMAP item that
+brings them: the batched, streaming and async engines (A9, A10, A12),
+fleet traces and the arena store (A10), codecs other than identity
+(A7), rank tiers, faults, defenses and round recovery (A11).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.data.loader import client_epochs
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fl import codecs, comm
+from repro_torch.fl.arrivals import arrival_mask
+from repro_torch.fl.client import ClientConfig, init_client_state, local_update
+from repro_torch.fl.strategies import Strategy, tree_mean, tree_zeros
+from repro_torch.fl.trace import spawn_seeds
+from repro_torch.tree import tree_map, tree_to
+
+FEDPER_LOCAL_KEYS = ("head", "fc2", "b2")   # model-specific last layers
+
+
+def _loss_stats(losses) -> tuple:
+    """``(mean, nonfinite_count)`` over per-client round losses; the mean
+    ignores non-finite entries."""
+    arr = np.asarray(losses).reshape(-1)
+    if arr.size == 0:
+        return float("nan"), 0
+    fin = np.isfinite(arr)
+    mean = float(arr[fin].mean()) if fin.any() else float("nan")
+    return mean, int((~fin).sum())
+
+
+@dataclass
+class ServerConfig:
+    """Round/selection/wire/engine settings for :class:`FLServer`: every
+    field of the reference's ``ServerConfig`` with the same defaults.
+    The fields of the parts not ported yet must keep their defaults
+    (see the module docstring)."""
+
+    clients: int = 100
+    participation: float = 0.16
+    rounds: int = 20
+    lr_decay: float = 0.992
+    personalization: str = "none"      # none | pfedpara | fedper | local
+    uplink_quant: str = "fp32"         # legacy: fp32 | fp16 | int8
+    downlink_quant: str = "fp32"       # legacy: fp32 | fp16 | int8
+    uplink_codec: str = ""             # codec spec (identity only so far)
+    downlink_codec: str = ""           # overrides *_quant when non-empty
+    oversample: float = 0.0            # straggler over-sampling fraction
+    deadline_quantile: float = 0.9
+    straggler_sigma: float = 0.5       # lognormal sigma of compute time
+    bandwidth_mbps: float = 10.0
+    dropout_prob: float = 0.0          # random client failure per round
+    staleness_mix: float = 0.0         # >0: staleness-weighted mixing
+    engine: str = "sequential"         # sequential (batched | streaming |
+                                       # async: not ported yet)
+    client_chunk: int = 16             # streaming/async: clients per step
+    buffer_k: int = 0                  # async: arrivals per version bump
+    staleness: str = "constant"        # async staleness weight s(tau)
+    max_staleness: int = -1            # async: drop staler arrivals
+    state_store: str = "dict"          # dict (arena: not ported yet)
+    data_stream: str = "eager"         # eager (chunked: not ported yet)
+    trace: Optional[Any] = None        # fleet trace (not ported yet)
+    gamma_tiers: tuple = ()            # capacity tiers (not ported yet)
+    tier_assignment: str = "round_robin"
+    defense: str = "none"              # none (clip | trimmed: not ported)
+    defense_z: float = 3.0
+    defense_clip: float = 1.0
+    defense_trim: float = 0.1
+    faults: Optional[Any] = None       # fault plan (not ported yet)
+    recover_frac: float = 0.5
+    recover_retries: int = 0           # round recovery (not ported yet)
+    seed: int = 0
+
+
+def _refuse_unported(scfg: ServerConfig) -> None:
+    """Raise for every setting whose machinery is not ported yet."""
+    if scfg.engine != "sequential":
+        raise NotImplementedError(
+            f"engine {scfg.engine!r}: only the sequential engine is ported; "
+            "batched is ROADMAP A9, streaming A10, async A12")
+    if scfg.personalization not in ("none", "pfedpara", "fedper", "local"):
+        raise ValueError(f"unknown personalization {scfg.personalization!r}")
+    unported = (
+        (scfg.trace is not None, "trace (fleet traces, ROADMAP A10)"),
+        (scfg.state_store != "dict", "state_store != 'dict' (ROADMAP A10)"),
+        (scfg.data_stream != "eager", "data_stream != 'eager' (ROADMAP A10)"),
+        (bool(scfg.gamma_tiers), "gamma_tiers (rank tiers, ROADMAP A11)"),
+        (scfg.faults is not None, "faults (ROADMAP A11)"),
+        (scfg.defense != "none", "defense != 'none' (ROADMAP A11)"),
+        (scfg.recover_retries > 0, "recover_retries > 0 (ROADMAP A11)"),
+    )
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+class FLServer:
+    """The federated-learning server/simulator, sequential engine (see
+    the module docstring).
+
+    Args:
+        loss_fn: ``loss_fn(params, batch) -> scalar tensor``; the batch
+            is a dict of tensors on the params' device.
+        global_params: initial global model tree of tensors (FedPara
+            factors are just leaves), moved to ``device``.
+        data: dataset dict of numpy arrays; clients index it via
+            ``partitions``.
+        partitions: per-client index arrays into ``data``.
+        strategy: a ``repro_torch.fl.strategies.Strategy``.
+        client_cfg: local-SGD settings (lr, batch, epochs, ...).
+        server_cfg: round/selection/codec settings.
+        eval_fn: optional ``eval_fn(global_params) -> float`` recorded per
+            round in ``history[i]["eval"]``.
+        device: where the run trains: ``cuda`` by default (raises
+            without a card), ``"cpu"`` for the plain versions on the host.
+
+    After ``run()``: ``global_params`` holds the trained model,
+    ``history`` the per-round records (participants, ``arrived_mask``,
+    mean loss, exact ``down_bytes``/``up_bytes``), ``comm_log`` the
+    cumulative wire bytes, ``client_states``/``local_trees`` the
+    per-client strategy state and personalization residents.
+    """
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        global_params: Any,
+        data: Dict[str, np.ndarray],
+        partitions: List[np.ndarray],
+        strategy: Strategy,
+        client_cfg: ClientConfig,
+        server_cfg: ServerConfig,
+        eval_fn: Optional[Callable] = None,
+        device: DeviceLike = None,
+    ):
+        _refuse_unported(server_cfg)
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.global_params = tree_to(global_params, self.device)
+        self.data = data
+        self.partitions = partitions
+        self.strategy = strategy
+        self.ccfg = client_cfg
+        self.scfg = server_cfg
+        self.eval_fn = eval_fn
+        self.rng = np.random.RandomState(server_cfg.seed)
+        self.round_idx = 0
+        self.comm_log = comm.CommLog()
+        self.server_state = (strategy.server_init(global_params)
+                             if strategy.server_init else {})
+        self.client_states: Dict[int, Dict] = {}
+        self.local_trees: Dict[int, Any] = {}   # personalization residents
+        self.history: List[Dict] = []
+        self.uplink_codec = codecs.make_codec(
+            server_cfg.uplink_codec or server_cfg.uplink_quant)
+        self.downlink_codec = codecs.make_codec(
+            server_cfg.downlink_codec or server_cfg.downlink_quant)
+
+    # ------------------------------------------------------------ payload
+    def _download_payload(self, cid: int) -> Any:
+        p = self.global_params
+        mode = self.scfg.personalization
+        if mode == "pfedpara":
+            glob, _ = comm.split_pfedpara(p)
+            return glob
+        if mode == "fedper":
+            return {k: v for k, v in p.items() if k not in FEDPER_LOCAL_KEYS}
+        return p
+
+    def _client_full_params(self, cid: int, download: Any) -> Any:
+        """Client-side model assembly from the (decoded) downlink payload
+        plus personalization residents; first-time participants take
+        their resident half from the global init."""
+        mode = self.scfg.personalization
+        if mode == "none":
+            return download
+        resident = self.resident_of(cid)
+        if mode == "pfedpara":
+            if resident is None:
+                resident = comm.split_pfedpara(self.global_params)[1]
+            return comm.merge_pfedpara(download, resident)
+        if mode == "fedper":
+            if resident is None:
+                resident = {k: v for k, v in self.global_params.items()
+                            if k in FEDPER_LOCAL_KEYS}
+            merged = dict(download)
+            merged.update(resident)
+            return merged
+        if mode == "local":
+            return resident if resident is not None else download
+        return download
+
+    def resident_of(self, cid: int) -> Any:
+        """One client's personalization resident (``None`` if it never
+        participated)."""
+        return self.local_trees.get(cid)
+
+    def client_state_of(self, cid: int) -> Dict:
+        """One client's strategy state (``{}`` if it never
+        participated)."""
+        return self.client_states.get(cid, {})
+
+    def _split_upload(self, cid: int, trained: Any):
+        """Split a trained tree into (upload, resident); the resident
+        lands in ``local_trees[cid]``."""
+        target = self.local_trees
+        mode = self.scfg.personalization
+        if mode == "pfedpara":
+            glob, loc = comm.split_pfedpara(trained)
+            target[cid] = loc
+            return glob
+        if mode == "fedper":
+            target[cid] = {k: trained[k] for k in FEDPER_LOCAL_KEYS
+                           if k in trained}
+            return {k: v for k, v in trained.items()
+                    if k not in FEDPER_LOCAL_KEYS}
+        if mode == "local":
+            target[cid] = trained
+            return None
+        return trained
+
+    def _apply_aggregated(self, new_global_part: Any, agg_target: Any):
+        """Write the aggregated global slice back, with optional
+        staleness-weighted mixing."""
+        scfg = self.scfg
+        if scfg.staleness_mix > 0:
+            a = scfg.staleness_mix
+            new_global_part = tree_map(lambda old, new: (1 - a) * old + a * new,
+                                       agg_target, new_global_part)
+        if scfg.personalization == "none":
+            self.global_params = new_global_part
+        elif scfg.personalization == "pfedpara":
+            self.global_params = comm.merge_pfedpara(
+                new_global_part, comm.split_pfedpara(self.global_params)[1])
+        else:
+            self.global_params = {**self.global_params, **new_global_part}
+
+    def _round_bytes(self, mask, down_bytes: int, down_dec: Any) -> tuple:
+        """Exact (down, up) wire bytes for the round's arrived clients:
+        participants x the payload's codec bytes on each link."""
+        n_arrived = int(mask.sum())
+        local = self.scfg.personalization == "local"
+        up = 0 if local else self.uplink_codec.wire_bytes(down_dec)
+        return n_arrived * down_bytes, n_arrived * up
+
+    # ------------------------------------------------------------- round
+    def _simulate_latency(self, payload_bytes, n: int) -> np.ndarray:
+        comp = self.rng.lognormal(mean=0.0, sigma=self.scfg.straggler_sigma,
+                                  size=n)
+        comm_s = 8.0 * payload_bytes / (self.scfg.bandwidth_mbps * 1e6)
+        return comp + comm_s
+
+    def _select_round(self):
+        """Host-side RNG for one round (the reference's legacy path, same
+        draws in the same order): sample clients, simulate stragglers and
+        dropout, derive the arrived-mask over the sampled order and each
+        sampled client's data seed. Download latency is priced at the
+        downlink codec's wire bytes."""
+        scfg = self.scfg
+        n_target = max(1, int(round(scfg.participation * scfg.clients)))
+        n_sample = max(n_target, int(round(n_target * (1 + scfg.oversample))))
+        n_sample = min(n_sample, scfg.clients)
+        sampled = self.rng.choice(scfg.clients, size=n_sample, replace=False)
+        lr = self.ccfg.lr * (scfg.lr_decay ** self.round_idx)
+        probe_payload = self._download_payload(int(sampled[0]))
+        payload_bytes = self.downlink_codec.wire_bytes(probe_payload)
+        lat = self._simulate_latency(payload_bytes, len(sampled))
+        alive = self.rng.rand(len(sampled)) >= scfg.dropout_prob
+        deadline = (np.quantile(lat, scfg.deadline_quantile)
+                    if scfg.oversample else np.inf)
+        ok = alive & (lat <= deadline)
+        mask = arrival_mask(ok, lat, n_target)
+        seeds = spawn_seeds(scfg.seed, self.round_idx, len(sampled))
+        return sampled, mask, seeds, lr, probe_payload, lat
+
+    def _encode_downlink(self, payload: Any):
+        """One broadcast encode/decode per round: the decoded payload
+        clients train on and its exact per-client wire bytes (the
+        identity codec hands the payload through)."""
+        codec = self.downlink_codec
+        decoded, _ = codec.encode_decode(payload)
+        return decoded, codec.wire_bytes(payload)
+
+    def run_round(self) -> Dict:
+        """Execute one federated round end to end (selection, broadcast,
+        the sequential engine, bookkeeping) and return (and append to
+        ``history``) its record."""
+        sampled, mask, seeds, lr, probe, lat = self._select_round()
+        if not mask.any():   # everyone failed: skip round (fault tolerance)
+            self.round_idx += 1
+            return {"round": self.round_idx, "participants": 0,
+                    "skipped": True}
+        down_dec, down_bytes = self._encode_downlink(probe)
+        rec = self._run_round_sequential(sampled, mask, seeds, lr, down_dec,
+                                         down_bytes)
+        # virtual seconds the sync barrier costs: the round completes
+        # when its last arrival lands
+        rec["round_latency"] = float(
+            np.max(np.asarray(lat)[mask.astype(bool)]))
+        rec["comm_gb"] = self.comm_log.total_gb
+        self.round_idx += 1
+        rec["round"] = self.round_idx
+        rec["arrived_mask"] = mask.astype(int).tolist()
+        rec["sampled"] = [int(c) for c in sampled]
+        if self.eval_fn is not None:
+            rec["eval"] = self.eval_fn(self.global_params)
+        self.history.append(rec)
+        return rec
+
+    # ------------------------------------------- sequential reference
+    def _run_round_sequential(self, sampled, mask, seeds, lr, down_dec,
+                              down_bytes):
+        """The reference round: a loop over the arrived clients, then the
+        weighted mean of their uploads and the strategy's server update.
+        A client appears once per round, so its state and resident are
+        written back as it finishes. Returns the round's record."""
+        scfg = self.scfg
+        up_codec = self.uplink_codec
+        uploads, weights, losses = [], [], []
+        for i, cid in enumerate(int(c) for c in sampled):
+            if not mask[i]:
+                continue
+            params = self._client_full_params(cid, down_dec)
+            state = self._prep_client_state(cid, params, down_dec)
+            batches = client_epochs(self.data, self.partitions[cid],
+                                    self.ccfg.batch, self.ccfg.epochs,
+                                    seed=int(seeds[i]))
+            trained, state, m = local_update(
+                params, batches, self.loss_fn, self.ccfg, self.strategy,
+                client_state=state, lr=lr)
+            up = self._split_upload(cid, trained)
+            if up is not None:
+                up, _ = up_codec.encode_decode(up, ref=down_dec)
+                uploads.append(up)
+                weights.append(float(len(self.partitions[cid])))
+            self.client_states[cid] = state
+            losses.append(m["loss"])
+
+        if uploads and scfg.personalization != "local":
+            agg_target = (self.global_params if scfg.personalization == "none"
+                          else self._download_payload(-1))
+            new_global_part, self.server_state = self.strategy.server_update(
+                self.server_state, agg_target, tree_mean(uploads, weights))
+            self._apply_aggregated(new_global_part, agg_target)
+        rd, ru = self._round_bytes(mask, down_bytes, down_dec)
+        self.comm_log.log_round(rd, ru)
+        mean_loss, nonfinite = _loss_stats(losses)
+        return {
+            "participants": int(mask.sum()),
+            "sampled": len(sampled),
+            "mean_loss": mean_loss,
+            "nonfinite_losses": nonfinite,
+            "down_bytes": rd,
+            "up_bytes": ru,
+            "lr": lr,
+        }
+
+    def _prep_client_state(self, cid: int, params: Any, down_dec: Any) -> Dict:
+        """Round-start client state: stored state or strategy init, with
+        the SCAFFOLD server control variate broadcast in."""
+        state = self.client_states.get(cid)
+        if state is None:
+            state = init_client_state(self.strategy, params)
+        if self.strategy.name == "scaffold" and "c" in state:
+            c = (tree_zeros(params) if not self.server_state
+                 else self.server_state.get("c", tree_zeros(params)))
+            state = {**state, "c": c}
+        return state
+
+    def run(self, rounds: Optional[int] = None,
+            log_every: int = 0) -> List[Dict]:
+        """Run ``rounds`` federated rounds (default
+        ``ServerConfig.rounds``) and return the full ``history``."""
+        target = rounds or self.scfg.rounds
+        for r in range(target):
+            rec = self.run_round()
+            if log_every and (r % log_every == 0):
+                print(rec)
+        return self.history
+
+    # --------------------------------------------- personalization eval
+    def personalized_eval(self, eval_fn: Callable) -> List[float]:
+        """Evaluate each client's merged (global + resident local) model
+        with ``eval_fn(params, cid)``."""
+        scores = []
+        for cid in range(self.scfg.clients):
+            params = self._client_full_params(cid, self._download_payload(cid))
+            scores.append(float(eval_fn(params, cid)))
+        return scores

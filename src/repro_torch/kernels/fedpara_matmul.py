@@ -5,8 +5,9 @@ Computes y = x @ W with W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) without writing W
 to device memory: each (32 x 32) tile of W is composed in shared memory
 from factor slices, cast to the activation dtype and contracted at
 once. Replaces ``repro/kernels/fedpara_matmul.py:_kernel`` (K1). The
-client-stacked ``_kernel_batched`` (K2) and the backward kernels wait
-for the training slice.
+backward kernels (K3, which runs this kernel on the transposed weight,
+and K4) are launched from ``kernels/fedpara_grad.py``; the
+client-stacked ``_kernel_batched`` (K2) waits for the batched engine.
 """
 from __future__ import annotations
 

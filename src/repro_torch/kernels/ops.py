@@ -22,10 +22,12 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import fedpara_grad as _fg
 from repro_torch.kernels import fedpara_matmul as _fm
 from repro_torch.kernels import ref, serve_matmul
 
-KERNELS = ("fedpara_matmul", "w8_matmul", "cache_residual_matmul")
+KERNELS = ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors", "w8_matmul",
+           "cache_residual_matmul")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -50,18 +52,25 @@ def resolve_kind(kind=None) -> str:
     return kind
 
 
-def _on_card(x: torch.Tensor, what: str, *tensors) -> bool:
+def _on_card(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA activation (launch the kernel), False for a CPU
     one (plain version); raises for anything else."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    return True
+
+
+def _serve_only(x: torch.Tensor, what: str, *tensors) -> bool:
+    """:func:`_on_card` for a kernel without a backward: on the card a
+    tensor that requires grad raises."""
+    if not _on_card(x, what):
+        return False
     if any(t is not None and t.requires_grad for t in (x, *tensors)):
         raise NotImplementedError(
-            f"{what}: gradients through the CUDA kernels come with the "
-            "training slice (K1 as an autograd.Function with the K3/K4 "
-            "backward kernels); serving runs without autograd")
+            f"{what}: a serve-only kernel with no backward (as in the "
+            "reference); call it without autograd")
     return True
 
 
@@ -73,10 +82,19 @@ def _same_dtype(x: torch.Tensor, out_dtype, what: str) -> None:
 
 def fedpara_matmul(x, x1, y1, x2, y2, *, kind=None,
                    out_dtype=None) -> torch.Tensor:
-    """y = x @ (f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ)), x (B, m) -> (B, n); K1 on the card,
-    W never materialized."""
+    """y = x @ (f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ)), x (B, m) -> (B, n), differentiable
+    in x and the factors; on the card K1 forward, K3 and K4 backward, W
+    never materialized."""
+    return _fg.FedParaMatmul.apply(x, x1, y1, x2, y2, resolve_kind(kind),
+                                   out_dtype)
+
+
+def fedpara_forward(x, x1, y1, x2, y2, *, kind=None,
+                    out_dtype=None) -> torch.Tensor:
+    """The forward of :func:`fedpara_matmul` without autograd: K1 on the
+    card, the plain version on the host."""
     kind = resolve_kind(kind)
-    if not _on_card(x, "fedpara_matmul", x1, y1, x2, y2):
+    if not _on_card(x, "fedpara_matmul"):
         return ref.fedpara_matmul_ref(x, x1, y1, x2, y2, kind=kind,
                                       out_dtype=out_dtype)
     _same_dtype(x, out_dtype, "fedpara_matmul")
@@ -85,11 +103,36 @@ def fedpara_matmul(x, x1, y1, x2, y2, *, kind=None,
     return y
 
 
+def fedpara_dx(dy, x1, y1, x2, y2, *, kind=None,
+               out_dtype=None) -> torch.Tensor:
+    """dx = dy @ Wᵀ, dy (B, n) -> (B, m) in ``out_dtype`` (default dy's);
+    K3 on the card."""
+    kind = resolve_kind(kind)
+    if not _on_card(dy, "fedpara_dx"):
+        return ref.fedpara_dx_ref(dy, x1, y1, x2, y2, kind=kind,
+                                  out_dtype=out_dtype)
+    dx = _fg.fedpara_dx(dy, x1, y1, x2, y2, kind=kind)
+    LAUNCHES["fedpara_dx"] += 1
+    return dx.to(out_dtype or dy.dtype)
+
+
+def fedpara_dfactors(x, dy, x1, y1, x2, y2, *, side: str, kind=None):
+    """The factor gradients of one side, fp32: side "x" (dX1, dX2) (m, r),
+    side "y" (dY1, dY2) (n, r); K4 on the card (one launch per call)."""
+    kind = resolve_kind(kind)
+    if not _on_card(x, "fedpara_dfactors"):
+        return ref.fedpara_dfactors_ref(x, dy, x1, y1, x2, y2, side=side,
+                                        kind=kind)
+    out = _fg.fedpara_dfactors(x, dy, x1, y1, x2, y2, side=side, kind=kind)
+    LAUNCHES["fedpara_dfactors"] += 1
+    return out
+
+
 def w8_matmul(x, w, scale=None, *, out_dtype=None) -> torch.Tensor:
     """y = (x @ W)·s against an int8 (with ``scale``) or fp16
     (``scale=None``) weight cache; K8 on the card, the cache widened only
     inside the kernel's tiles."""
-    if not _on_card(x, "w8_matmul"):
+    if not _serve_only(x, "w8_matmul"):
         return ref.w8_matmul_ref(x, w, scale, out_dtype=out_dtype)
     _same_dtype(x, out_dtype, "w8_matmul")
     y = serve_matmul.w8_matmul(x, w, scale)
@@ -102,7 +145,7 @@ def cache_residual_matmul(x, w, scale, x2, y2, *, out_dtype=None
     """pFedPara serve matmul y = (x @ (W ⊙ (X2Y2ᵀ + 1)))·s against the
     shared W1 cache; x (B, m) for one user or (U, t, m) for U users in
     one launch (K9/K10 on the card)."""
-    if not _on_card(x, "cache_residual_matmul", x2, y2):
+    if not _serve_only(x, "cache_residual_matmul", x2, y2):
         return ref.cache_residual_ref(x, w, scale, x2, y2,
                                       out_dtype=out_dtype)
     _same_dtype(x, out_dtype, "cache_residual_matmul")

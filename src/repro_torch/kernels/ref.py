@@ -37,6 +37,62 @@ def fedpara_matmul_ref(x, x1, y1, x2, y2, *, kind: str = "fedpara",
     return (x.float() @ w).to(out_dtype or x.dtype)
 
 
+def _variants(x1, y1, x2, y2, kind: str):
+    """(W1, W2, f1(W1), f2(W2), f1'(W1), f2'(W2)) densely in fp32; the
+    derivatives are None where they are 1."""
+    if kind not in KINDS:
+        raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
+    w1 = x1.float() @ y1.float().T
+    w2 = x2.float() @ y2.float().T
+    if kind == "fedpara_tanh":
+        t1, t2 = torch.tanh(w1), torch.tanh(w2)
+        return w1, w2, t1, t2, 1.0 - t1 * t1, 1.0 - t2 * t2
+    return w1, w2, w1, (w2 + 1.0 if kind == "pfedpara" else w2), None, None
+
+
+def fedpara_dx_ref(dy, x1, y1, x2, y2, *, kind: str = "fedpara",
+                   out_dtype=None) -> torch.Tensor:
+    """dx = dy @ Wᵀ (K3's function); dy (B, n) -> dx (B, m). Like K3 it
+    casts W to dy's dtype before the contraction, then accumulates in
+    fp32."""
+    w = fedpara_compose_ref(x1, y1, x2, y2, kind=kind, out_dtype=dy.dtype)
+    return (dy.float() @ w.float().T).to(out_dtype or dy.dtype)
+
+
+def _factor_grads(x, dy, x1, y1, x2, y2, kind: str):
+    """(G1, G2) = (dW ⊙ f2(W2) ⊙ f1'(W1), dW ⊙ f1(W1) ⊙ f2'(W2)) with
+    dW = xᵀ dy, densely in fp32."""
+    _, _, f1, f2, d1, d2 = _variants(x1, y1, x2, y2, kind)
+    dw = x.float().T @ dy.float()
+    g1 = dw * f2 if d1 is None else dw * f2 * d1
+    g2 = dw * f1 if d2 is None else dw * f1 * d2
+    return g1, g2
+
+
+def fedpara_dfactors_ref(x, dy, x1, y1, x2, y2, *, side: str,
+                         kind: str = "fedpara"):
+    """K4's function, fp32: side "x" gives (dX1, dX2) = (G1 Y1, G2 Y2),
+    side "y" gives (dY1, dY2) = (G1ᵀ X1, G2ᵀ X2)."""
+    g1, g2 = _factor_grads(x, dy, x1, y1, x2, y2, kind)
+    if side == "x":
+        return g1 @ y1.float(), g2 @ y2.float()
+    if side == "y":
+        return g1.T @ x1.float(), g2.T @ x2.float()
+    raise ValueError(f"side must be 'x' or 'y', got {side!r}")
+
+
+def fedpara_matmul_vjp_ref(x, x1, y1, x2, y2, dy, *, kind: str = "fedpara"):
+    """Closed-form dense VJP oracle: (dx, dX1, dY1, dX2, dY2) in fp32
+    (dx in x's dtype), the reference's ``kernels/ref.py:133-169``:
+    materializes W, dW = xᵀdy and the chain-rule terms — the ground truth
+    the backward kernels reproduce without building them."""
+    _, _, f1, f2, _, _ = _variants(x1, y1, x2, y2, kind)
+    g1, g2 = _factor_grads(x, dy, x1, y1, x2, y2, kind)
+    dx = (dy.float() @ (f1 * f2).T).to(x.dtype)
+    return (dx, g1 @ y1.float(), g1.T @ x1.float(), g2 @ y2.float(),
+            g2.T @ x2.float())
+
+
 def _dequant(w, scale) -> torch.Tensor:
     wf = w.float()
     if scale is not None:

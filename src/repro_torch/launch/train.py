@@ -1,0 +1,168 @@
+"""Training driver (PyTorch): the paper's FL simulation, ``--mode fl``.
+
+The counterpart of ``repro/launch/train.py --mode fl --model mlp``: the
+784-256-10 MLP (``kind``/``gamma`` from ``--param``/``--gamma``,
+factorized where that saves parameters) trains on a synthetic 28x28
+10-class image set split over ``--clients`` clients by a Dirichlet(0.5)
+draw, through the sequential ``FLServer`` with identity codecs. Each
+round prints its record; the run ends with the reference's final JSON
+record (the last round's, plus ``comm_up_mb`` / ``comm_down_mb``).
+
+* ``--device`` defaults to ``cuda`` and raises without a card; pass
+  ``--device cpu`` to run the plain PyTorch versions on the host.
+* ``--use-kernels`` trains through the fused differentiable matmul (K1
+  forward, K3/K4 backward; the reference's ``--use-pallas``).
+* ``--init-params <npz>`` starts from a tree written with
+  ``repro_torch.interop.save_npz`` (e.g. the reference's
+  ``jax.random``-initialized MLP), so a port run can match a reference
+  run record for record; without it the port draws its own seeded init.
+
+Not ported yet: ``--mode pods`` (ROADMAP A14/A15), the batched,
+streaming and async engines (A9, A10, A12), codecs other than identity
+(A7), rank tiers, faults and defenses (A11).
+
+    python -m repro_torch.launch.train --mode fl --model mlp --rounds 3 \\
+        --clients 20 --use-kernels
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import time
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ParamCfg
+from repro_torch.data import dirichlet_partition, make_image_dataset, train_test_split
+from repro_torch.device import resolve_device
+from repro_torch.fl.client import ClientConfig
+from repro_torch.fl.server import FLServer, ServerConfig
+from repro_torch.fl.strategies import make_strategy
+from repro_torch.interop import load_npz
+from repro_torch.nn import recurrent as rec
+
+
+def mlp_task(seed: int):
+    """The reference CLI's MLP task: (train, test) dicts of numpy arrays
+    (4000 samples of 28x28x1, 10 classes, noise 0.4), flattened to 784."""
+    ds = make_image_dataset(4000, 10, size=28, channels=1, noise=0.4,
+                            seed=seed)
+    data = {"x": ds["x"].reshape(len(ds["y"]), -1), "y": ds["y"]}
+    return train_test_split(data)
+
+
+def _mlp_loss(cfg, p, b):
+    return rec.mlp_loss(p, cfg, b)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def build_fl(args: argparse.Namespace) -> FLServer:
+    """The configured FLServer on ``args.device`` (not yet run)."""
+    if args.model != "mlp":
+        raise SystemExit("--mode fl supports --model mlp (the LSTM and VGG "
+                         "models are not ported yet)")
+    dev = resolve_device(args.device)
+    tr, te = mlp_task(args.seed)
+    cfg = rec.MLPConfig(in_dim=784, hidden=256, classes=10,
+                        param=ParamCfg(kind=args.param, gamma=args.gamma,
+                                       min_dim_for_factorization=8,
+                                       use_kernels=args.use_kernels))
+    if args.init_params:
+        params = load_npz(args.init_params, dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = rec.init_mlp_model(gen, cfg, dev)
+    test = {"x": torch.as_tensor(te["x"][:1000], device=dev),
+            "y": torch.as_tensor(te["y"][:1000], device=dev)}
+
+    def eval_fn(p):
+        with torch.no_grad():
+            return float(rec.mlp_accuracy(p, cfg, test))
+
+    parts = dirichlet_partition(tr["y"], args.clients, 0.5, seed=args.seed)
+    return FLServer(functools.partial(_mlp_loss, cfg), params, tr, parts,
+                    make_strategy(args.strategy),
+                    ClientConfig(lr=args.lr, batch=64,
+                                 epochs=args.local_epochs),
+                    ServerConfig(clients=args.clients, participation=0.16,
+                                 rounds=args.rounds,
+                                 personalization=args.personalization,
+                                 uplink_codec=args.uplink_codec,
+                                 downlink_codec=args.downlink_codec,
+                                 engine=args.engine),
+                    eval_fn=eval_fn, device=dev)
+
+
+def final_record(srv: FLServer) -> Dict[str, Any]:
+    """The reference CLI's closing record: the last round's, plus the
+    run's cumulative wire megabytes per link."""
+    out = dict(srv.history[-1])
+    out["comm_up_mb"] = srv.comm_log.up_bytes / 1e6
+    out["comm_down_mb"] = srv.comm_log.down_bytes / 1e6
+    return out
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--mode", default="fl", choices=["fl", "pods"])
+    ap.add_argument("--model", default="mlp")
+    ap.add_argument("--strategy", default="fedavg")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--clients", type=int, default=20)
+    ap.add_argument("--local-epochs", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--param", default="fedpara")
+    ap.add_argument("--gamma", type=float, default=0.3)
+    ap.add_argument("--personalization", default="none",
+                    choices=["none", "pfedpara", "fedper", "local"])
+    ap.add_argument("--uplink-codec", default="",
+                    help="identity only ('' / fp32 / none / identity)")
+    ap.add_argument("--downlink-codec", default="",
+                    help="identity only ('' / fp32 / none / identity)")
+    ap.add_argument("--engine", default="sequential", choices=["sequential"],
+                    help="FL round engine (the batched, streaming and async "
+                         "engines are not ported yet)")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="train every FedPara dense() through the fused "
+                         "differentiable matmul: K1 forward, K3/K4 backward, "
+                         "W never materialized")
+    ap.add_argument("--init-params", default="",
+                    help="start from this .npz tree (interop.save_npz)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Run the CLI; returns ``{"record", "server", "round_seconds"}``
+    (the printed final record, the trained FLServer and each round's
+    host wall time, synchronized with the card)."""
+    args = parser().parse_args(argv)
+    if args.mode == "pods":
+        raise SystemExit("--mode pods (the transformer pod trainer) is not "
+                         "ported yet: ROADMAP A14/A15")
+    srv = build_fl(args)
+    seconds = []
+    for _ in range(args.rounds):
+        t0 = time.perf_counter()
+        rec_ = srv.run_round()
+        _sync(srv.device)
+        seconds.append(time.perf_counter() - t0)
+        print(rec_, flush=True)
+    record = final_record(srv)
+    print(json.dumps(record, indent=1), flush=True)
+    return {"record": record, "server": srv,
+            "round_seconds": np.asarray(seconds).tolist()}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,2 @@
-"""Model code (PyTorch): layers, attention and the decoder-only LM."""
+"""Model code (PyTorch): layers, attention, the decoder-only LM and the
+paper's MLP."""

@@ -16,7 +16,12 @@ layouts the engine writes (``repro_torch.serve.cache``):
 * factor nodes with injected ``ux2/uy2`` — the per-user Gram path.
 
 ``use_kernels=False`` is the reference's plain path (materialize W, then
-a matmul): the oracle the serve tests merge users into.
+a matmul): the oracle the serve tests merge users into, and the plain
+training path. With ``use_kernels`` a factor node trains through
+``ops.fedpara_matmul``, differentiable through
+``kernels.fedpara_grad.FedParaMatmul`` (K1 forward, K3/K4 backward):
+the counterpart of the reference's ``use_pallas``. Training keeps
+``gram_batch`` at 0, so every row count takes K1.
 """
 from __future__ import annotations
 

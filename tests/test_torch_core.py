@@ -253,4 +253,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         ServeEngine(cfg, params, mode="precompose")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--layers", "2"])
+    # the training slice's entry points
+    from repro_torch.fl.client import ClientConfig
+    from repro_torch.fl.server import FLServer, ServerConfig
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLServer(lambda p, b: p["w"].sum(), {"w": torch.zeros(3)}, {}, [],
+                 make_strategy("fedavg"), ClientConfig(), ServerConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--mode", "fl", "--model", "mlp", "--rounds", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
