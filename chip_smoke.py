@@ -1,10 +1,11 @@
 """Chip smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives the port's two paths (``repro_torch``) on the card through its
+Drives the port's paths (``repro_torch``) on the card through its
 hand-written CUDA kernels: serving at qwen3-8b's full width, and FL
-training of the paper's MLP at its full width; holds every kernel
-against its plain PyTorch version. Phases, each printed on its own
-line; any failed check raises, so the script exits non-zero:
+training of the paper's MLP at its full width through the sequential,
+batched and streaming engines; holds every kernel against its plain
+PyTorch version. Phases, each printed on its own line; any failed check
+raises, so the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once); print the build time and the
@@ -18,6 +19,13 @@ line; any failed check raises, so the script exits non-zero:
    bound at that shape, the plain version's time and one PyTorch library
    call's time where one call computes the function (``torch.matmul``
    on the dequantized / composed W, a yardstick the port never calls);
+   the client-stacked kernels of the batched engine (K2, K3 and K4 with
+   a client axis) at the same shapes for 4 clients of 128 rows (bf16,
+   and fp32), at ragged shapes and at the MLP's shapes for 8 clients of
+   64 rows; the dequant-accumulate K7 for 16 clients over one qwen3-8b
+   layer's factors (int8, fp16 and fp32 wire; ``torch.addmv`` on the
+   widened stack as the yardstick), a ragged length, an unaligned leaf,
+   zero coefficients and the MLP's streaming leaves;
 3. 36-layer qwen3-8b, ``kind=fedpara``, precompose int8: batch 4,
    prompt 128, 16 greedy tokens through K8;
 4. the same weights in fused mode (K1 on prefill, the Gram identity on
@@ -30,9 +38,13 @@ line; any failed check raises, so the script exits non-zero:
    backward through ``FedParaMatmul`` (K1, K3, K4) against plain
    autograd (materialize W, then matmul), fp32;
 8. the FL training path: ``launch/train.py --mode fl --model mlp
-   --rounds 3 --clients 20 --use-kernels`` on the card against the same
-   run on the host, from the same initial weights;
-9. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
+   --rounds 3 --clients 20 --use-kernels --engine sequential`` on the
+   card against the same run on the host, from the same initial weights;
+9. the FL engines: ``launch/train.py --mode fl --model mlp --rounds 3
+   --clients 50 --use-kernels`` with ``--engine batched`` on the card
+   and on the host, and with ``--engine streaming --client-chunk 3`` on
+   the card (8 clients a round: 3 chunks, one pad slot);
+10. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--quick`` builds and checks the kernels at two shapes and stops;
@@ -61,6 +73,9 @@ DISTINCT = {"wq": SHAPES["wq"], "wk": SHAPES["wk"],
             "w_gate": SHAPES["w_gate"], "w_down": SHAPES["w_down"]}
 # the FL MLP's factorized layers (784 -> 256 -> 10, gamma 0.3) at batch 64
 MLP_SHAPES = {"fc1": (64, 784, 256, 40), "fc2": (64, 256, 10, 4)}
+CLIENTS, CLIENT_ROWS = 4, 128      # client-stacked kernels at full width
+AGG_CLIENTS = 16                   # K7: the default client_chunk
+AGG_L = sum(2 * r * (m + n) for m, n, r in SHAPES.values())  # 27,418,624
 REPLACES = {
     "fedpara_matmul": "src/repro/kernels/fedpara_matmul.py:45 _kernel",
     "fedpara_dx": "src/repro/kernels/fedpara_grad.py:80 _dx_body",
@@ -69,12 +84,23 @@ REPLACES = {
     "w8_matmul": "src/repro/kernels/serve_matmul.py:48 _w8_kernel",
     "cache_residual_matmul": "src/repro/kernels/serve_matmul.py:68 "
                              "_resid_kernel + :92 _resid_kernel_users",
+    "fedpara_matmul_clients": "src/repro/kernels/fedpara_matmul.py:76 "
+                              "_kernel_batched",
+    "fedpara_dx_clients": "src/repro/kernels/fedpara_grad.py:80 _dx_body "
+                          "(lead=True)",
+    "fedpara_dfactors_clients": "src/repro/kernels/fedpara_grad.py:191 "
+                                "_dfactors_body (lead=True)",
+    "dequant_acc": "src/repro/kernels/agg.py:63 _agg_body",
 }
 SOURCES = {"fedpara_matmul": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_dx": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_dfactors": "src/repro_torch/csrc/fedpara_grad.cu",
            "w8_matmul": "src/repro_torch/csrc/serve_matmul.cu",
-           "cache_residual_matmul": "src/repro_torch/csrc/serve_matmul.cu"}
+           "cache_residual_matmul": "src/repro_torch/csrc/serve_matmul.cu",
+           "fedpara_matmul_clients": "src/repro_torch/csrc/fedpara_matmul.cu",
+           "fedpara_dx_clients": "src/repro_torch/csrc/fedpara_matmul.cu",
+           "fedpara_dfactors_clients": "src/repro_torch/csrc/fedpara_grad.cu",
+           "dequant_acc": "src/repro_torch/csrc/agg.cu"}
 
 
 def say(phase: str, **kw) -> None:
@@ -207,8 +233,7 @@ def phase_kernels(clock: Clock, quick: bool):
     gen = torch.Generator(device="cuda").manual_seed(123)
     shapes = dict(list(DISTINCT.items())[:1]) if quick else DISTINCT
     rows_list = (4,) if quick else (4, 512)
-    cases = {"w8_matmul": [], "fedpara_matmul": [], "fedpara_dx": [],
-             "fedpara_dfactors": [], "cache_residual_matmul": []}
+    cases = {k: [] for k in ops.KERNELS}
 
     def record(kernel, name, fn, plain, lib, tol, nbytes, f16=0.0, f32=0.0,
                timed=True):
@@ -317,6 +342,7 @@ def phase_kernels(clock: Clock, quick: bool):
             del x32
         if not quick:
             _backward_cases(record, gen, pname, m, n, r, (x1, y1, x2, y2))
+            _client_cases(record, gen, pname, m, n, r)
         # K9: one user, 2-D activations, fp16 cache
         x = torch.randn((4, m), generator=gen, device="cuda").to(torch.bfloat16)
         w1h = (x1 @ y1.T).half()
@@ -370,6 +396,14 @@ def phase_kernels(clock: Clock, quick: bool):
                                                  dy, fac, kind),
                    None, 1e-5, io + 16 * r * (m + n), f16=do["f16"],
                    f32=do["f32"], timed=timed)
+    # the client-stacked forms at ragged shapes and at the MLP's shapes
+    # for 8 clients of 64 rows (the batched engine's calls), fp32
+    for C, rows, m, n, r in ((3, 5, 1000, 1000, 37), (2, 517, 130, 97, 5),
+                             *((8, *s) for s in mlp)):
+        _client_stack_cases(record, gen, f"fp32 C={C}x{rows} {m}x{n} r={r}",
+                            C, rows, m, n, r, torch.float32, 1e-5,
+                            timed=(rows, m, n, r) in mlp)
+    _agg_cases(record, gen, quick)
     if quick:
         return cases
     # ragged fp32 shapes: every edge masked, tighter tolerance
@@ -442,6 +476,131 @@ def _backward_cases(record, gen, pname, m, n, r, fac):
                                                  dy, fac, kind),
                    None, tol, io_dt + 16 * r * (m + n), f16=do["f16"],
                    f32=do["f32"], timed=timed)
+
+
+def _client_factors(gen, C, m, n, r, kind="fedpara"):
+    """C clients' factors, each client's own draw (C, m, r) / (C, n, r)."""
+    per = [_factors(gen, m, n, r, kind) for _ in range(C)]
+    return tuple(torch.stack(f) for f in zip(*per))
+
+
+def _client_stack_cases(record, gen, tag, C, rows, m, n, r, dt, tol,
+                        timed, kinds=("fedpara", "fedpara_tanh", "pfedpara")):
+    """K2, K3 and K4 (both sides) with a client axis on C clients of
+    ``rows`` rows: every kind against its plain version; fedpara timed
+    (``timed``) with one ``torch.bmm`` on the composed W stack as K2's
+    and K3's yardstick."""
+    from repro_torch.kernels import ops, ref
+
+    fac = _client_factors(gen, C, m, n, r)
+    x = torch.randn((C, rows, m), generator=gen, device="cuda").to(dt)
+    dy = torch.randn((C, rows, n), generator=gen, device="cuda").to(dt)
+    bits = 16 if dt == torch.bfloat16 else 32
+    io = C * rows * (m + n) * bits // 8
+    fbytes = C * 4 * 2 * r * (m + n)
+    for kind in kinds:
+        t = timed and kind == "fedpara"
+        wt = (ref.fedpara_compose_ref(*fac, kind=kind, out_dtype=dt)
+              if t else None)
+        fo = fedpara_ops(rows, m, n, r, kind, x_bits=bits)
+        record("fedpara_matmul_clients", f"{tag} {kind}",
+               lambda kind=kind: ops.fedpara_matmul(x, *fac, kind=kind),
+               lambda kind=kind: ref.fedpara_matmul_ref(x, *fac, kind=kind),
+               (lambda wt=wt: torch.bmm(x, wt)) if t else None, tol,
+               io + fbytes, f16=C * fo["f16"], f32=C * fo["f32"], timed=t)
+        record("fedpara_dx_clients", f"{tag} {kind}",
+               lambda kind=kind: ops.fedpara_dx(dy, *fac, kind=kind),
+               lambda kind=kind: ref.fedpara_dx_ref(dy, *fac, kind=kind),
+               (lambda wt=wt: torch.bmm(dy, wt.mT)) if t else None, tol,
+               io + fbytes, f16=C * fo["f16"], f32=C * fo["f32"], timed=t)
+        del wt
+        do = dfactors_ops(rows, m, n, r, x_bits=bits)
+        record("fedpara_dfactors_clients", f"{tag} {kind}",
+               lambda kind=kind: _both_sides(ops.fedpara_dfactors, x, dy,
+                                             fac, kind),
+               lambda kind=kind: _both_sides(ref.fedpara_dfactors_ref, x, dy,
+                                             fac, kind),
+               None, tol, io + 2 * fbytes, f16=C * do["f16"],
+               f32=C * do["f32"], timed=t)
+
+
+def _client_cases(record, gen, pname, m, n, r):
+    """The client-stacked kernels at one full-width projection: 4
+    clients x 128 rows, bf16 (fedpara timed) at 1e-2, then fp32 at
+    1e-5."""
+    tag = f"{pname} {m}x{n} r={r}"
+    _client_stack_cases(record, gen, f"{tag} C={CLIENTS}x{CLIENT_ROWS}",
+                        CLIENTS, CLIENT_ROWS, m, n, r, torch.bfloat16, 1e-2,
+                        timed=True)
+    _client_stack_cases(record, gen, f"{tag} fp32 C={CLIENTS}x{CLIENT_ROWS}",
+                        CLIENTS, CLIENT_ROWS, m, n, r, torch.float32, 1e-5,
+                        timed=False)
+    torch.cuda.empty_cache()
+
+
+def _agg_cases(record, gen, quick):
+    """K7 against its plain version. Full size (unless ``quick``): 16
+    clients over one qwen3-8b layer's factors (AGG_L elements), int8,
+    fp16 and fp32 wire, timed, ``torch.addmv`` on the fp32 stack as the
+    yardstick; then a ragged length read through an unaligned view, zero
+    coefficients (which must add exact zeros), and the MLP's leaves at
+    the streaming phase's chunk of 3 clients (fp32, the identity
+    codec's wire). Tolerance 1e-5 relative: fp32 sums of 16 terms in
+    another order."""
+    from repro_torch.kernels import ops, ref
+
+    C = AGG_CLIENTS
+    coeff = torch.rand((C,), generator=gen, device="cuda") * 40.0
+    sizes = () if quick else (("layer", AGG_L),)
+    for label, L in (*sizes, ("ragged", 1_000_003)):
+        acc0 = torch.randn((L,), generator=gen, device="cuda")
+        q8 = torch.randint(-127, 128, (C, L), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        for qname, q in (("int8", q8), ("fp16", q8.half() / 64),
+                         ("fp32", q8.float() / 64)):
+            work = acc0.clone()
+            qf = q.float() if label == "layer" else None
+            record("dequant_acc", f"{label} C={C} L={L} {qname}",
+                   lambda q=q, work=work: ops.dequant_acc(work, q, coeff),
+                   lambda q=q: ref.dequant_acc_ref(acc0, q, coeff),
+                   (lambda qf=qf: torch.addmv(acc0, qf.T, coeff))
+                   if qf is not None else None,
+                   1e-5, (q.element_size() * C + 8) * L, f32=2.0 * C * L,
+                   timed=label == "layer")
+            del work, qf
+        torch.cuda.empty_cache()
+    # a leaf that starts 1 byte past an aligned address, rows L + 1 apart
+    L = 4099
+    base = torch.randint(-127, 128, (C, L + 1), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    q = base[:, 1:]
+    acc0 = torch.randn((L,), generator=gen, device="cuda")
+    work = acc0.clone()
+    record("dequant_acc", f"unaligned C={C} L={L} int8",
+           lambda: ops.dequant_acc(work, q, coeff),
+           lambda: ref.dequant_acc_ref(acc0, q, coeff), None, 1e-5, 0,
+           timed=False)
+    zero = torch.zeros_like(coeff)
+    check(torch.equal(ops.dequant_acc(acc0.clone(), q, zero), acc0),
+          "dequant_acc: zero coefficients changed the accumulator")
+    pad = coeff.clone()
+    pad[C // 2:] = 0.0      # pad slots: coefficient 0 on finite rows
+    half = ops.dequant_acc(acc0.clone(), q[: C // 2], coeff[: C // 2])
+    check(torch.equal(ops.dequant_acc(acc0.clone(), q, pad), half),
+          "dequant_acc: pad slots with coefficient 0 changed the sum")
+    # the MLP's leaves at the streaming phase's chunk (identity wire)
+    for name, shape in (("fc1.x1", (784, 40)), ("fc1.y1", (256, 40)),
+                        ("b1", (256,)), ("fc2.y1", (10, 4)), ("b2", (10,))):
+        q = torch.randn((3, *shape), generator=gen, device="cuda")
+        acc0 = torch.randn(shape, generator=gen, device="cuda")
+        work = acc0.clone()
+        w = torch.tensor([40.0, 12.0, 0.0], device="cuda")
+        record("dequant_acc", f"mlp {name} C=3 fp32",
+               lambda q=q, work=work, w=w: ops.dequant_acc(
+                   work.view(-1), q.reshape(3, -1), w),
+               lambda q=q, acc0=acc0, w=w: ref.dequant_acc_ref(
+                   acc0.view(-1), q.reshape(3, -1), w), None, 1e-5,
+               (4 * 3 + 8) * acc0.numel(), timed=False)
 
 
 # ------------------------------------------------------------ phases 3-6
@@ -737,22 +896,13 @@ def phase_layer_grad(measurements):
     measurements["layer_grad"] = out
 
 
-def phase_train(measurements):
-    """The FL main path: ``launch/train.py --mode fl --model mlp --rounds 3
-    --clients 20 --use-kernels`` (``--lr 0.05`` so the weights move) on
-    the card, and the same run on the host with ``--device cpu``, both
-    from one set of initial weights drawn on the host and passed with
-    ``--init-params``. Masks, sampled clients and wire bytes must be
-    equal; loss and parameters within 1e-4, the reference's engine
-    tolerance (fp32 sums in another order on each side); eval within
-    2e-3, two of its 1000 test predictions, since one argmax flipped at
-    a near-tie moves it by 1e-3. Returns the card run's launch counts."""
+def _mlp_init():
+    """The MLP's initial weights (784 -> 256 -> 10, fedpara, gamma 0.3),
+    drawn on the host from a seed and written for ``--init-params``;
+    returns (tree, path)."""
     from repro_torch import interop
     from repro_torch.configs.base import ParamCfg
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
     from repro_torch.nn import recurrent as rec
-    from repro_torch.tree import tree_leaves
 
     cfg = rec.MLPConfig(in_dim=784, hidden=256, classes=10,
                         param=ParamCfg(kind="fedpara", gamma=0.3,
@@ -764,24 +914,41 @@ def phase_train(measurements):
     path = REPO / "build" / "chip_smoke" / "mlp_init.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
     interop.save_npz(init, str(path))
-    argv = ["--mode", "fl", "--model", "mlp", "--rounds", "3", "--clients",
-            "20", "--use-kernels", "--lr", "0.05", "--init-params", str(path)]
-    ops.reset_launches()
-    card = train.main(argv)
-    counts = ops.launches()
-    host = train.main(argv + ["--device", "cpu"])
-    for kernel in ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors"):
-        check(counts[kernel] > 0, f"{kernel} never launched in FL training")
-    for a, b in zip(card["server"].history, host["server"].history):
-        for k in ("arrived_mask", "sampled", "down_bytes", "up_bytes",
-                  "comm_gb"):
-            check(a[k] == b[k], f"round {a['round']} {k}: {a[k]} != {b[k]}")
+    return init, path
+
+
+def _param_maxdiff(a, b) -> float:
+    """Largest |a - b| over two servers' global parameters."""
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+               zip(tree_leaves(a["server"].global_params),
+                   tree_leaves(b["server"].global_params)))
+
+
+def _same_rounds(a, b, what: str, keys=("arrived_mask", "sampled",
+                                        "down_bytes", "up_bytes",
+                                        "comm_gb")) -> None:
+    """Two runs' round records agree exactly on ``keys``."""
+    for ra, rb in zip(a["server"].history, b["server"].history):
+        for k in keys:
+            check(ra[k] == rb[k],
+                  f"{what} round {ra['round']} {k}: {ra[k]} != {rb[k]}")
+
+
+def _card_vs_host(card, host, init) -> dict:
+    """The card run against the host run of the same command: loss and
+    parameters within 1e-4, the reference's engine tolerance (fp32 sums
+    in another order on each side); eval within 2e-3, two of its 1000
+    test predictions, since one argmax flipped at a near-tie moves it by
+    1e-3; and training must have moved the weights."""
+    from repro_torch.tree import tree_leaves
+
+    _same_rounds(card, host, "card vs host")
     rc, rh = card["record"], host["record"]
     loss_d = abs(rc["mean_loss"] - rh["mean_loss"])
     eval_d = abs(rc["eval"] - rh["eval"])
-    cp = tree_leaves(card["server"].global_params)
-    hp = tree_leaves(host["server"].global_params)
-    param_d = max(float((a.cpu() - b).abs().max()) for a, b in zip(cp, hp))
+    param_d = _param_maxdiff(card, host)
     moved = max(float((a.cpu() - b).abs().max()) for a, b in
                 zip(tree_leaves(card["server"].global_params["fc1"]),
                     tree_leaves(init["fc1"])))
@@ -789,6 +956,35 @@ def phase_train(measurements):
     check(loss_d < 1e-4, f"card vs host mean_loss differ by {loss_d}")
     check(param_d < 1e-4, f"card vs host params differ by {param_d}")
     check(eval_d <= 2e-3, f"card vs host eval differ by {eval_d}")
+    return {"loss_diff": loss_d, "eval_diff": eval_d,
+            "param_maxdiff": param_d, "fc1_moved": moved}
+
+
+def phase_train(measurements):
+    """The FL main path of the sequential engine: ``launch/train.py
+    --mode fl --model mlp --rounds 3 --clients 20 --use-kernels --engine
+    sequential`` (``--lr 0.05`` so the weights move) on the card, and
+    the same run on the host with ``--device cpu``, both from one set of
+    initial weights drawn on the host and passed with ``--init-params``.
+    Masks, sampled clients and wire bytes must be equal, the rest as
+    :func:`_card_vs_host` says. Returns the card run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    init, path = _mlp_init()
+    argv = ["--mode", "fl", "--model", "mlp", "--rounds", "3", "--clients",
+            "20", "--use-kernels", "--lr", "0.05", "--init-params", str(path),
+            "--engine", "sequential"]
+    ops.reset_launches()
+    card = train.main(argv)
+    counts = ops.launches()
+    host = train.main(argv + ["--device", "cpu"])
+    for kernel in ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors"):
+        check(counts[kernel] > 0, f"{kernel} never launched in FL training")
+    rc = card["record"]
+    diffs = _card_vs_host(card, host, init)
+    loss_d, eval_d = diffs["loss_diff"], diffs["eval_diff"]
+    param_d, moved = diffs["param_maxdiff"], diffs["fc1_moved"]
     out = {"round_seconds_card": card["round_seconds"],
            "round_seconds_host": host["round_seconds"],
            "launches": counts, "record": rc, "loss_diff": loss_d,
@@ -798,6 +994,66 @@ def phase_train(measurements):
     say("fl_train", **out)
     measurements["train"] = out
     return counts
+
+
+def phase_engines(measurements):
+    """The batched and streaming engines: ``launch/train.py --mode fl
+    --model mlp --rounds 3 --clients 50 --use-kernels --lr 0.05`` from
+    the same initial weights, with ``--engine batched`` on the card and
+    on the host (:func:`_card_vs_host`), and with ``--engine streaming
+    --client-chunk 3`` on the card, held to the card's batched run:
+    masks, clients and bytes equal, parameters within 1e-4 (chunking
+    reassociates the fp32 sum), and its records carry 3 chunks of 3.
+    Each card run's launches are counted on its own; the client-stacked
+    kernels and K7 must each launch. Returns the card runs' summed
+    launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    init, path = _mlp_init()
+    argv = ["--mode", "fl", "--model", "mlp", "--rounds", "3", "--clients",
+            "50", "--use-kernels", "--lr", "0.05", "--init-params", str(path)]
+    runs, counts = {}, {}
+    for name, extra in (("batched", ["--engine", "batched"]),
+                        ("streaming", ["--engine", "streaming",
+                                       "--client-chunk", "3"])):
+        ops.reset_launches()
+        runs[name] = train.main(argv + extra)
+        counts[name] = ops.launches()
+    host = train.main(argv + ["--engine", "batched", "--device", "cpu"])
+    for kernel in ("fedpara_matmul_clients", "fedpara_dx_clients",
+                   "fedpara_dfactors_clients"):
+        for name in runs:
+            check(counts[name][kernel] > 0,
+                  f"{kernel} never launched by the {name} engine")
+    check(counts["streaming"]["dequant_acc"] > 0,
+          "dequant_acc never launched by the streaming engine")
+    check(counts["batched"]["fedpara_matmul"] == 2 * 3,
+          f"batched engine: {counts['batched']['fedpara_matmul']} 2-D K1 "
+          "launches, want 2 per eval")
+    diffs = _card_vs_host(runs["batched"], host, init)
+    _same_rounds(runs["streaming"], runs["batched"], "streaming vs batched")
+    stream_d = _param_maxdiff(runs["streaming"], runs["batched"])
+    check(stream_d < 1e-4, f"streaming vs batched params differ by "
+          f"{stream_d}")
+    for r in runs["streaming"]["server"].history:
+        check((r["chunks"], r["client_chunk"], r["participants"]) ==
+              (3, 3, 8), f"streaming round layout {r}")
+    out = {"round_seconds_batched_card": runs["batched"]["round_seconds"],
+           "round_seconds_streaming_card":
+               runs["streaming"]["round_seconds"],
+           "round_seconds_batched_host": host["round_seconds"],
+           "launches": counts, "record_batched": runs["batched"]["record"],
+           "record_streaming": runs["streaming"]["record"],
+           "streaming_vs_batched_param_maxdiff": stream_d, **diffs,
+           "round_profile_batched": _profile(
+               runs["batched"]["server"].run_round),
+           "round_profile_streaming": _profile(
+               runs["streaming"]["server"].run_round)}
+    say("fl_engines", **out)
+    measurements["engines"] = out
+    return {k: counts["batched"][k] + counts["streaming"][k]
+            for k in counts["batched"]}
 
 
 # ------------------------------------------------------------ main
@@ -834,7 +1090,14 @@ def _layer_sums(cases):
     return out
 
 
-def _summary(sums, launches):
+def _case(cases, kernel, name):
+    """One measured case of a kernel that is not summed per layer."""
+    row = next(r for r in cases[kernel] if r["case"] == name)
+    return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err")}
+
+
+def _summary(sums, launches, cases):
     """One entry per kernel: the numbers of one layer's worth of its
     main-path calls (sums over the layer's projections)."""
     plan = {"w8_matmul": ("rows=4 int8", "one layer's 7 projections, int8 "
@@ -848,10 +1111,26 @@ def _summary(sums, launches):
                                  "(2 launches per projection)"),
             "cache_residual_matmul": ("rows=4 users=4 int8",
                                       "one layer's 7 projections, 4 users x "
-                                      "1 row (a decode step)")}
+                                      "1 row (a decode step)"),
+            "fedpara_matmul_clients": (
+                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+                f"one layer's 7 projections, {CLIENTS} clients x "
+                f"{CLIENT_ROWS} rows, bf16"),
+            "fedpara_dx_clients": (
+                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+                f"one layer's 7 projections, {CLIENTS} clients x "
+                f"{CLIENT_ROWS} rows, bf16"),
+            "fedpara_dfactors_clients": (
+                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+                f"one layer's 7 projections, {CLIENTS} clients x "
+                f"{CLIENT_ROWS} rows, bf16, both sides"),
+            "dequant_acc": (
+                f"layer C={AGG_CLIENTS} L={AGG_L} fp32",
+                f"{AGG_CLIENTS} clients' fp32 (identity-codec) wire over "
+                "one qwen3-8b layer's FedPara factors, one launch")}
     out = []
     for kernel, (key, at) in plan.items():
-        tot = sums[kernel][key]
+        tot = sums[kernel].get(key) or _case(cases, kernel, key)
         out.append({"name": kernel, "route": "cuda",
                     "source": SOURCES[kernel], "replaces": REPLACES[kernel],
                     "launches": launches[kernel],
@@ -902,13 +1181,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_layer_grad(measurements)
         torch.cuda.empty_cache()
-        for k, v in phase_train(measurements).items():
-            launches[k] += v
+        for phase in (phase_train, phase_engines):
+            for k, v in phase(measurements).items():
+                launches[k] += v
         missing = [k for k in ops.KERNELS if launches[k] == 0]
         check(not missing, f"kernels never launched on the main path: "
               f"{missing}")
         measurements["layer_sums"] = _layer_sums(cases)
-        summary = _summary(measurements["layer_sums"], launches)
+        summary = _summary(measurements["layer_sums"], launches, cases)
         measurements["summary"] = summary
         print(json.dumps({"kernels": summary}), flush=True)
     measurements["seconds"] = time.perf_counter() - t_start

@@ -8,7 +8,11 @@
 //
 // Replaces (TPU, Pallas):
 //   K4  src/repro/kernels/fedpara_grad.py:_dfactors_body  -> repro_fedpara_dfactors
-//       (fedpara_dx_factors: side x; fedpara_dy_factors: side y)
+//       (fedpara_dx_factors: side x; fedpara_dy_factors: side y), both
+//       its 2-D form and its lead=True form with a leading client axis
+//       (the batched FL engine's backward): `clients` independent
+//       problems in one launch, client c reading every operand at its
+//       own slab of a contiguous (clients, ...) stack.
 //
 // One kernel serves both sides. Side y is side x of the transposed
 // problem: dWᵀ = dyᵀ x, W1ᵀ = Y1 X1ᵀ, and the chain rule is elementwise,
@@ -38,7 +42,17 @@
 //     of a 1024-wide projection: 32 blocks), the sweep is split over
 //     grid y and a second kernel sums the partial accumulators in a
 //     fixed order: no atomics, so the result is deterministic;
-//   * every ragged edge (batch, P, Q, r) is masked in the kernel.
+//   * every ragged edge (batch, P, Q, r) is masked in the kernel;
+//   * with a client axis, grid z carries client x rank-chunk group
+//     (z = c * nz + group), the split sweep's scratch gains a client
+//     dimension (2 x splits x clients x P x r), and the split count is
+//     chosen after counting all clients' blocks, so C small problems
+//     fill the card together before any sweep is split. Each client's
+//     sums stay in its own registers and its own scratch rows: no
+//     client's order depends on another's. The per-client offsets are
+//     a compile-time option (CLIENTS): they hold six more pointers in
+//     registers through the sweep, which the largest rank variants
+//     cannot afford, so the 2-D form compiles without them.
 // Not yet done (later work): tensor cores for the dW sum and the
 // contractions, a pipelined load of the activation tiles.
 #include <algorithm>
@@ -73,17 +87,29 @@ struct __align__(16) Smem {
 // entries a thread owns (rows kr, kr+8, kr+16, kr+24) are one float4.
 __device__ __forceinline__ int perm(int p) { return (p % 8) * 4 + p / 8; }
 
-template <typename XT, int KIND, int NC>
+template <typename XT, int KIND, int NC, bool CLIENTS>
 __global__ void __launch_bounds__(NT)
 dfactors_kernel(const XT* __restrict__ A, const XT* __restrict__ D,
                 const float* __restrict__ F1, const float* __restrict__ F2,
                 const float* __restrict__ H1, const float* __restrict__ H2,
                 float* __restrict__ O1, float* __restrict__ O2, int B, int P,
-                int Q, int r, int tiles_per_split) {
+                int Q, int r, int tiles_per_split, int clients, int nz) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * BP;
-  const int c0 = blockIdx.z * NC * RC;    // this block's first rank column
+  size_t client = 0;                      // this block's client
+  int group = blockIdx.z;                 // its rank-chunk group
+  if constexpr (CLIENTS) {
+    client = blockIdx.z / nz;
+    group = blockIdx.z % nz;
+    A += client * B * P;
+    D += client * B * Q;
+    F1 += client * P * r;
+    F2 += client * P * r;
+    H1 += client * Q * r;
+    H2 += client * Q * r;
+  }
+  const int c0 = group * NC * RC;         // the block's first rank column
   const int nq = (Q + BQ - 1) / BQ;
   const int t_lo = blockIdx.y * tiles_per_split;
   const int t_hi = min(nq, t_lo + tiles_per_split);
@@ -197,9 +223,11 @@ dfactors_kernel(const XT* __restrict__ A, const XT* __restrict__ D,
     }
   }
 
-  // ---- write this block's sums (split y's partials when the sweep is split)
+  // ---- write this block's sums (split y's partials when the sweep is
+  // split): output layout (splits, clients, P, r)
   float* const Os[2] = {O1, O2};
-  const size_t base = (size_t)blockIdx.y * P * r;
+  const size_t base = CLIENTS ? ((size_t)blockIdx.y * clients + client) * P * r
+                              : (size_t)blockIdx.y * P * r;
   const int p = p0 + pr;
   if (p >= P) return;
 #pragma unroll
@@ -236,19 +264,22 @@ int rank_chunks(int r) {  // NC for rank r: chunks of 32, at most NCMAX
 
 struct Args {
   const void *a, *d, *f1, *f2, *h1, *h2;
-  int batch, P, Q, r, splits;
+  int clients, batch, P, Q, r, splits;
 };
 
 template <typename XT, int KIND, int NC>
 int launch(const Args& g, float* o1, float* o2, cudaStream_t s) {
   const int nq = (g.Q + BQ - 1) / BQ;
   const int tps = (nq + g.splits - 1) / g.splits;
-  const dim3 grid((g.P + BP - 1) / BP, g.splits, (g.r + NC * RC - 1) / (NC * RC));
-  dfactors_kernel<XT, KIND, NC><<<grid, NT, 0, s>>>(
-      static_cast<const XT*>(g.a), static_cast<const XT*>(g.d),
-      static_cast<const float*>(g.f1), static_cast<const float*>(g.f2),
-      static_cast<const float*>(g.h1), static_cast<const float*>(g.h2), o1, o2, g.batch,
-      g.P, g.Q, g.r, tps);
+  const int nz = (g.r + NC * RC - 1) / (NC * RC);
+  if ((long long)g.clients * nz > 65535) return (int)cudaErrorInvalidValue;   // grid z
+  const dim3 grid((g.P + BP - 1) / BP, g.splits, g.clients * nz);
+  auto k = g.clients > 1 ? dfactors_kernel<XT, KIND, NC, true>
+                         : dfactors_kernel<XT, KIND, NC, false>;
+  k<<<grid, NT, 0, s>>>(static_cast<const XT*>(g.a), static_cast<const XT*>(g.d),
+                        static_cast<const float*>(g.f1), static_cast<const float*>(g.f2),
+                        static_cast<const float*>(g.h1), static_cast<const float*>(g.h2), o1,
+                        o2, g.batch, g.P, g.Q, g.r, tps, g.clients, nz);
   return (int)cudaGetLastError();
 }
 
@@ -276,16 +307,17 @@ int launch_kind(int kind, const Args& g, float* o1, float* o2, cudaStream_t s) {
 
 extern "C" {
 
-// How many blocks share one output slab's sweep for an (own P, other Q,
-// rank r) problem on a card with `sms` SMs: 1 when the output rows
-// alone give WANT_BLOCKS_PER_SM blocks per SM, else enough splits of the
-// sweep to reach it (at most one per 32-column tile). With more than
-// one, repro_fedpara_dfactors needs 2 x splits x P x r fp32 of scratch.
-int repro_dfactors_splits(int P, int Q, int r, int sms) {
-  if (P <= 0 || Q <= 0 || r <= 0) return 1;
+// How many blocks share one output slab's sweep for `clients` (own P,
+// other Q, rank r) problems on a card with `sms` SMs: 1 when the output
+// rows of all clients alone give WANT_BLOCKS_PER_SM blocks per SM, else
+// enough splits of the sweep to reach it (at most one per 32-column
+// tile). With more than one, repro_fedpara_dfactors needs
+// 2 x splits x clients x P x r fp32 of scratch.
+int repro_dfactors_splits(int clients, int P, int Q, int r, int sms) {
+  if (clients <= 0 || P <= 0 || Q <= 0 || r <= 0) return 1;
   const int nc = rank_chunks(r);
-  const long long blocks =
-      (long long)((P + BP - 1) / BP) * ((r + nc * RC - 1) / (nc * RC));
+  const long long blocks = (long long)clients * ((P + BP - 1) / BP) *
+                           ((r + nc * RC - 1) / (nc * RC));
   const long long want = (long long)WANT_BLOCKS_PER_SM * sms;
   if (blocks >= want) return 1;
   const int nq = (Q + BQ - 1) / BQ;
@@ -294,23 +326,25 @@ int repro_dfactors_splits(int P, int Q, int r, int sms) {
   return (nq + tps - 1) / tps;   // every split owns at least one tile
 }
 
-// K4: O1, O2 (P, r) fp32 = the factor gradients of one side (see the
-// top of this file): side x passes (x, dy, X1, X2, Y1, Y2) with P = m,
-// Q = n; side y passes (dy, x, Y1, Y2, X1, X2) with P = n, Q = m.
-// a (batch, P) and d (batch, Q) share x_dtype (X_F32 | X_BF16); the
-// factors are fp32. kind: 0 fedpara | 1 fedpara_tanh | 2 pfedpara.
-// splits from repro_dfactors_splits; scratch (2 x splits x P x r fp32)
-// is read only when splits > 1. Returns the first cudaError_t (0 on
+// K4: O1, O2 (clients, P, r) fp32 = the factor gradients of one side
+// for each client (see the top of this file): side x passes (x, dy, X1,
+// X2, Y1, Y2) with P = m, Q = n; side y passes (dy, x, Y1, Y2, X1, X2)
+// with P = n, Q = m. a (clients, batch, P) and d (clients, batch, Q)
+// share x_dtype (X_F32 | X_BF16); the factors (clients, P, r) /
+// (clients, Q, r) are fp32; clients = 1 is the 2-D form. kind: 0
+// fedpara | 1 fedpara_tanh | 2 pfedpara. splits from
+// repro_dfactors_splits; scratch (2 x splits x clients x P x r fp32) is
+// read only when splits > 1. Returns the first cudaError_t (0 on
 // success).
 int repro_fedpara_dfactors(const void* a, const void* d, const void* f1, const void* f2,
                            const void* h1, const void* h2, void* o1, void* o2,
-                           void* scratch, int batch, int P, int Q, int r, int splits,
-                           int kind, int x_dtype, void* stream) {
-  if (P <= 0 || r <= 0) return 0;
+                           void* scratch, int clients, int batch, int P, int Q, int r,
+                           int splits, int kind, int x_dtype, void* stream) {
+  if (clients <= 0 || P <= 0 || r <= 0) return 0;
   if (splits < 1 || (splits > 1 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args g{a, d, f1, f2, h1, h2, batch, P, Q, r, splits};
-  const long long count = (long long)P * r;
+  const Args g{a, d, f1, f2, h1, h2, clients, batch, P, Q, r, splits};
+  const long long count = (long long)clients * P * r;
   float* out1 = static_cast<float*>(splits > 1 ? scratch : o1);
   float* out2 = splits > 1 ? static_cast<float*>(scratch) + splits * count
                            : static_cast<float*>(o2);

@@ -10,6 +10,13 @@ every local step's forward runs K1 and its backward K3 and K4
 (``repro_torch.kernels.fedpara_grad.FedParaMatmul``): W is never
 materialized, and no engine code changes. PyTorch runs eagerly, so
 there is no jitted step: each minibatch is one call of the step math.
+
+``_step_math(..., stacked=True)`` is the same step for a client stack
+(the batched engines' step, the reference's ``jax.vmap`` of
+``_step_math`` written out over a leading client axis): the loss is per
+client, (C,), and so are the FedProx and FedDyn terms; clients share no
+parameter, so the gradient of the summed loss is each client's own
+gradient.
 """
 from __future__ import annotations
 
@@ -19,8 +26,10 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.fl.strategies import (Strategy, tree_dot, tree_sqnorm,
-                                       tree_sub, tree_zeros)
+from repro_torch.fl.strategies import (Strategy, lead, tree_dot,
+                                       tree_dot_clients, tree_sqnorm,
+                                       tree_sqnorm_clients, tree_sub,
+                                       tree_zeros)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -45,11 +54,21 @@ def _batch_to(batch: Dict, device) -> Dict:
 
 
 def _step_math(params, opt_mu, batch, global_params, client_state,
-               loss_fn, strategy_name: str, lr, momentum: float, wd: float):
+               loss_fn, strategy_name: str, lr, momentum: float, wd: float,
+               stacked: bool = False):
     """One strategy-aware local SGD step: the reference's ``_step_math``
     with ``torch.autograd.grad`` in place of ``jax.value_and_grad``.
     Returns ``(params, opt_mu, loss)``; the new params are fresh tensors
-    (nothing is updated in place)."""
+    (nothing is updated in place).
+
+    ``stacked``: the step on a client stack (the reference's
+    ``batch_engine.py:86-106`` vmap of this step): params, opt_mu, the
+    start params ``global_params`` and the state lead with a client axis
+    C (the scalars ``mu_prox`` and ``alpha`` are (C,)), the batch is
+    ``{"x": (C, B, ...), "y": (C, B)}``, ``loss_fn`` returns one loss per
+    client, and so does the step: ``loss`` is (C,)."""
+    sqnorm, dot = ((tree_sqnorm_clients, tree_dot_clients) if stacked
+                   else (tree_sqnorm, tree_dot))
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(live)
@@ -57,13 +76,13 @@ def _step_math(params, opt_mu, batch, global_params, client_state,
 
     base = loss_fn(p, batch)
     if strategy_name == "fedprox":
-        base = base + 0.5 * client_state["mu_prox"] * tree_sqnorm(
+        base = base + 0.5 * client_state["mu_prox"] * sqnorm(
             tree_sub(p, global_params))
     if strategy_name == "feddyn":
-        base = base + (-tree_dot(client_state["lambda_i"], p)
-                       + 0.5 * client_state["alpha"] * tree_sqnorm(
+        base = base + (-dot(client_state["lambda_i"], p)
+                       + 0.5 * client_state["alpha"] * sqnorm(
                            tree_sub(p, global_params)))
-    flat = torch.autograd.grad(base, live)
+    flat = torch.autograd.grad(base.sum() if stacked else base, live)
     git = iter(flat)
     grads = tree_map(lambda _: next(git), params)
     with torch.no_grad():
@@ -84,18 +103,25 @@ def _step_math(params, opt_mu, batch, global_params, client_state,
 def strategy_post(strategy_name: str, state: Dict, global_params: Any,
                   params: Any, n_steps, lr) -> Dict:
     """Per-client post-round state update (SCAFFOLD Option II c_i,
-    FedDyn lambda_i); a zero step count leaves the SCAFFOLD state
-    unchanged."""
+    FedDyn lambda_i). ``n_steps`` is one client's step count, or a (C,)
+    tensor of them for a client stack (every state leaf then leads with
+    C); a client with zero steps keeps its SCAFFOLD state."""
     state = dict(state)
     with torch.no_grad():
-        if strategy_name == "scaffold" and n_steps > 0:
-            scale = 1.0 / (max(float(n_steps), 1.0) * lr)
+        if strategy_name == "scaffold":
+            like = tree_leaves(state["c_i"])[0]
+            n = torch.as_tensor(n_steps, dtype=torch.float32,
+                                device=like.device)
+            scale = 1.0 / (torch.clamp_min(n, 1.0) * lr)
+            live = n > 0
             state["c_i"] = tree_map(
-                lambda ci, c, wg, wl: ci - c + scale * (wg - wl),
+                lambda ci, c, wg, wl: torch.where(
+                    lead(live, ci), ci - c + lead(scale, ci) * (wg - wl), ci),
                 state["c_i"], state["c"], global_params, params)
         if strategy_name == "feddyn":
+            alpha = state["alpha"]
             state["lambda_i"] = tree_map(
-                lambda lam, wl, wg: lam - state["alpha"] * (wl - wg),
+                lambda lam, wl, wg: lam - lead(alpha, lam) * (wl - wg),
                 state["lambda_i"], params, global_params)
     return state
 

@@ -9,6 +9,11 @@ feedback and the injected int8 rounding noise are ROADMAP A7.
 Byte accounting is exact and data-independent: ``wire_bytes`` sums each
 leaf's element count times its itemsize, the integers the reference's
 identity codec charges.
+
+The encoded-form aggregation hooks of the streaming engine
+(``encode_for_agg``, ``agg_linear``, ``agg_finalize``; the reference's
+``codecs.py:278-315``) are here for the identity codec: its wire is the
+payload itself, linear, with no delta reference to add back.
 """
 from __future__ import annotations
 
@@ -47,6 +52,26 @@ class Codec:
         """One simulated wire round trip: ``(decoded, new_ef)``; the
         identity codec hands the payload back untouched."""
         return payload, ef
+
+    @property
+    def agg_linear(self) -> bool:
+        """Whether wires can be weighted-summed without a per-client
+        decode (the identity wire is the payload: yes)."""
+        return True
+
+    def encode_for_agg(self, payload: Any, *, ref: Any = None,
+                       ef: Any = None, key: Optional[Any] = None
+                       ) -> Tuple[Any, Optional[Any]]:
+        """Encode for the streaming (encoded-form) aggregator:
+        ``(agg_wire, new_ef)`` with decode(wire) = linear(agg_wire); the
+        identity codec hands the payload back."""
+        return payload, ef
+
+    def agg_finalize(self, mean: Any, *, ref: Any = None) -> Any:
+        """Map the weighted mean of ``encode_for_agg`` wires back to
+        payload space (a delta codec adds its reference back; the
+        identity codec has none)."""
+        return mean
 
     def wire_bytes(self, payload: Any) -> int:
         """Exact wire size of ``payload``, from leaf shapes alone."""

@@ -1,6 +1,7 @@
 """FL server (PyTorch): sampling, straggler-aware aggregation,
 personalization — the counterpart of the reference's
-``repro/fl/server.py`` with its sequential engine.
+``repro/fl/server.py`` with its sequential, batched and streaming
+engines.
 
 Each round draws, host side and with the reference's numpy draws in the
 reference's order (``_select_round``: ``rng.choice``, then
@@ -9,10 +10,21 @@ sampled clients, their simulated latencies and dropouts, and the
 boolean arrived-mask over the sampled order: a client participates iff
 it survived dropout, beat the straggler deadline and is among the first
 ``n_target`` arrivals. The mask equals the reference's bit for bit.
-The arrived clients then train one after another (``local_update``),
-their uploads are averaged weighted by local dataset size, the
-strategy's server update runs, and ``CommLog`` charges the identity
-codec's exact wire bytes.
+Then the configured engine (``ServerConfig.engine``) trains:
+
+  sequential — the arrived clients one after another (``local_update``);
+               their uploads are averaged weighted by local dataset size;
+  batched    — ``repro_torch.fl.batch_engine.ClientBatch``: every sampled
+               client stacked along a client axis and trained together
+               (the client-stacked kernels on the card), the mask giving
+               a client that did not arrive aggregation weight 0;
+  streaming  — ``repro_torch.fl.stream_engine.StreamingRound``: the same
+               in chunks of ``client_chunk`` clients, uploads folded into
+               a running fp32 sum by the dequant-accumulate kernel (K7).
+
+The strategy's server update runs, and ``CommLog`` charges the identity
+codec's exact wire bytes. All engines write state back only for the
+arrived clients, into host dicts (``client_states``, ``local_trees``).
 
 Personalization modes:
   none      — vanilla FL (upload/download everything)
@@ -22,9 +34,9 @@ Personalization modes:
   local     — local-only baseline (no aggregation)
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings them: the batched, streaming and async engines (A9, A10, A12),
-fleet traces and the arena store (A10), codecs other than identity
-(A7), rank tiers, faults, defenses and round recovery (A11).
+brings them: the async engine (A12), fleet traces, the arena store and
+chunked data (A10), codecs other than identity (A7), rank tiers,
+faults, defenses and round recovery (A11).
 """
 from __future__ import annotations
 
@@ -32,15 +44,21 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.data.loader import client_epochs
+from repro_torch.data.loader import (client_epochs, client_step_count,
+                                     stack_client_epochs)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl import codecs, comm
 from repro_torch.fl.arrivals import arrival_mask
+from repro_torch.fl.batch_engine import ClientBatch
 from repro_torch.fl.client import ClientConfig, init_client_state, local_update
-from repro_torch.fl.strategies import Strategy, tree_mean, tree_zeros
+from repro_torch.fl.stream_engine import (StreamingRound, chunk_layout,
+                                          from_chunks, to_chunks)
+from repro_torch.fl.strategies import (Strategy, tree_mean, tree_stack,
+                                       tree_zeros)
 from repro_torch.fl.trace import spawn_seeds
-from repro_torch.tree import tree_map, tree_to
+from repro_torch.tree import tree_index, tree_map, tree_to
 
 FEDPER_LOCAL_KEYS = ("head", "fc2", "b2")   # model-specific last layers
 
@@ -78,8 +96,8 @@ class ServerConfig:
     bandwidth_mbps: float = 10.0
     dropout_prob: float = 0.0          # random client failure per round
     staleness_mix: float = 0.0         # >0: staleness-weighted mixing
-    engine: str = "sequential"         # sequential (batched | streaming |
-                                       # async: not ported yet)
+    engine: str = "sequential"         # sequential | batched | streaming
+                                       # (async: not ported yet)
     client_chunk: int = 16             # streaming/async: clients per step
     buffer_k: int = 0                  # async: arrivals per version bump
     staleness: str = "constant"        # async staleness weight s(tau)
@@ -101,10 +119,13 @@ class ServerConfig:
 
 def _refuse_unported(scfg: ServerConfig) -> None:
     """Raise for every setting whose machinery is not ported yet."""
-    if scfg.engine != "sequential":
+    if scfg.engine == "async":
         raise NotImplementedError(
-            f"engine {scfg.engine!r}: only the sequential engine is ported; "
-            "batched is ROADMAP A9, streaming A10, async A12")
+            "engine 'async' is not ported yet (ROADMAP A12); the "
+            "sequential, batched and streaming engines are")
+    if scfg.engine not in ("sequential", "batched", "streaming"):
+        raise ValueError(f"unknown engine {scfg.engine!r} (expected "
+                         "sequential | batched | streaming | async)")
     if scfg.personalization not in ("none", "pfedpara", "fedper", "local"):
         raise ValueError(f"unknown personalization {scfg.personalization!r}")
     unported = (
@@ -122,8 +143,8 @@ def _refuse_unported(scfg: ServerConfig) -> None:
 
 
 class FLServer:
-    """The federated-learning server/simulator, sequential engine (see
-    the module docstring).
+    """The federated-learning server/simulator (see the module
+    docstring).
 
     Args:
         loss_fn: ``loss_fn(params, batch) -> scalar tensor``; the batch
@@ -140,6 +161,11 @@ class FLServer:
             round in ``history[i]["eval"]``.
         device: where the run trains: ``cuda`` by default (raises
             without a card), ``"cpu"`` for the plain versions on the host.
+        loss_fn_clients: the client-stacked loss the batched and
+            streaming engines train through (required for them),
+            ``loss_fn_clients(params, batch) -> (C,)`` with every leaf
+            and the batch leading with the client axis (e.g.
+            ``nn.recurrent.mlp_loss_clients``).
 
     After ``run()``: ``global_params`` holds the trained model,
     ``history`` the per-round records (participants, ``arrived_mask``,
@@ -159,6 +185,7 @@ class FLServer:
         server_cfg: ServerConfig,
         eval_fn: Optional[Callable] = None,
         device: DeviceLike = None,
+        loss_fn_clients: Optional[Callable] = None,
     ):
         _refuse_unported(server_cfg)
         self.device = resolve_device(device)
@@ -182,6 +209,25 @@ class FLServer:
             server_cfg.uplink_codec or server_cfg.uplink_quant)
         self.downlink_codec = codecs.make_codec(
             server_cfg.downlink_codec or server_cfg.downlink_quant)
+        self._engine = self._stream = None
+        if server_cfg.engine != "sequential" and loss_fn_clients is None:
+            raise ValueError(f"engine {server_cfg.engine!r} trains through "
+                             "a client-stacked loss: pass loss_fn_clients")
+        if server_cfg.engine == "batched":
+            self._engine = ClientBatch(
+                loss_fn=loss_fn_clients, strategy=strategy,
+                client_cfg=client_cfg,
+                personalization=server_cfg.personalization,
+                uplink_codec=self.uplink_codec,
+                fedper_local_keys=FEDPER_LOCAL_KEYS)
+        elif server_cfg.engine == "streaming":
+            self._stream = StreamingRound(
+                loss_fn=loss_fn_clients, strategy=strategy,
+                client_cfg=client_cfg,
+                personalization=server_cfg.personalization,
+                uplink_codec=self.uplink_codec,
+                fedper_local_keys=FEDPER_LOCAL_KEYS,
+                chunk=max(1, int(server_cfg.client_chunk)))
 
     # ------------------------------------------------------------ payload
     def _download_payload(self, cid: int) -> Any:
@@ -310,7 +356,7 @@ class FLServer:
 
     def run_round(self) -> Dict:
         """Execute one federated round end to end (selection, broadcast,
-        the sequential engine, bookkeeping) and return (and append to
+        the configured engine, bookkeeping) and return (and append to
         ``history``) its record."""
         sampled, mask, seeds, lr, probe, lat = self._select_round()
         if not mask.any():   # everyone failed: skip round (fault tolerance)
@@ -318,8 +364,10 @@ class FLServer:
             return {"round": self.round_idx, "participants": 0,
                     "skipped": True}
         down_dec, down_bytes = self._encode_downlink(probe)
-        rec = self._run_round_sequential(sampled, mask, seeds, lr, down_dec,
-                                         down_bytes)
+        runner = (self._run_round_batched if self._engine is not None else
+                  self._run_round_streaming if self._stream is not None else
+                  self._run_round_sequential)
+        rec = runner(sampled, mask, seeds, lr, down_dec, down_bytes)
         # virtual seconds the sync barrier costs: the round completes
         # when its last arrival lands
         rec["round_latency"] = float(
@@ -393,6 +441,135 @@ class FLServer:
                  else self.server_state.get("c", tree_zeros(params)))
             state = {**state, "c": c}
         return state
+
+    # ------------------------------------------------ batched engine
+    def _stack_cohort(self, cids, down_dec):
+        """Round-start params, strategy state and personalization
+        residents of the listed clients, each stacked along a client
+        axis (``{}`` / ``None`` where the strategy / mode keeps none)."""
+        mode = self.scfg.personalization
+        full, states, residents = [], [], []
+        for cid in cids:
+            params = self._client_full_params(cid, down_dec)
+            full.append(params)
+            states.append(self._prep_client_state(cid, params, down_dec))
+            if mode == "pfedpara":
+                residents.append(comm.split_pfedpara(params)[1])
+            elif mode == "fedper":
+                residents.append({k: params[k] for k in FEDPER_LOCAL_KEYS
+                                  if k in params})
+            elif mode == "local":
+                residents.append(params)
+        return (tree_stack(full), tree_stack(states) if states[0] else {},
+                tree_stack(residents) if residents else None)
+
+    def _commit_stacked(self, cids, mask, new_state, local) -> None:
+        """Write the arrived clients' rows of the stacked state and
+        residents back into the host dicts; the others keep theirs."""
+        for pos in np.nonzero(mask)[0]:
+            cid = cids[pos]
+            self.client_states[cid] = (tree_index(new_state, int(pos))
+                                       if new_state else {})
+            if local is not None:
+                self.local_trees[cid] = tree_index(local, int(pos))
+
+    def _round_record(self, sampled, mask, last_loss, down_bytes, down_dec,
+                      lr, **extra) -> Dict:
+        """Charge the round's wire bytes and build its record (the
+        reference's keys)."""
+        rd, ru = self._round_bytes(mask, down_bytes, down_dec)
+        self.comm_log.log_round(rd, ru)
+        losses = last_loss.detach().cpu().numpy()[np.nonzero(mask)[0]]
+        mean_loss, nonfinite = _loss_stats(losses)
+        return {"participants": int(mask.sum()), "sampled": len(sampled),
+                **extra, "mean_loss": mean_loss,
+                "nonfinite_losses": nonfinite, "down_bytes": rd,
+                "up_bytes": ru, "lr": lr}
+
+    def _tensor(self, a) -> torch.Tensor:
+        """A host array as a float32 tensor on the run's device."""
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=self.device)
+
+    def _run_round_batched(self, sampled, mask, seeds, lr, down_dec,
+                           down_bytes):
+        """Every sampled client trains in one client-stacked program
+        (the arrived ones are written back and aggregated). Returns the
+        round's record."""
+        scfg = self.scfg
+        cids = [int(c) for c in sampled]
+        stacked_params, stacked_state, _ = self._stack_cohort(cids, down_dec)
+        batches, step_mask = stack_client_epochs(
+            self.data, self.partitions, cids, self.ccfg.batch,
+            self.ccfg.epochs, seeds)
+        sizes = [len(self.partitions[c]) for c in cids]
+        agg_target = (self.global_params if scfg.personalization == "none"
+                      else self._download_payload(-1))
+        (_, new_state, upload, local, last_loss, _, new_global,
+         new_server_state) = self._engine.run(
+            stacked_params, stacked_state,
+            {k: torch.as_tensor(v, device=self.device)
+             for k, v in batches.items()},
+            self._tensor(step_mask), self._tensor(mask), self._tensor(sizes),
+            lr, self.server_state, agg_target, down_dec)
+        self._commit_stacked(cids, mask, new_state, local)
+        if upload is not None and scfg.personalization != "local":
+            self.server_state = new_server_state
+            self._apply_aggregated(new_global, agg_target)
+        return self._round_record(sampled, mask, last_loss, down_bytes,
+                                  down_dec, lr)
+
+    # ---------------------------------------------- streaming engine
+    def _run_round_streaming(self, sampled, mask, seeds, lr, down_dec,
+                             down_bytes):
+        """The batched round in chunks of ``client_chunk`` clients, the
+        uploads folded into a running fp32 sum (K7). Pad slots (the
+        cohort rounded up to whole chunks) reuse client 0's state and
+        residents with zero batches, arrival mask 0 and size 0. Returns
+        the round's record."""
+        scfg = self.scfg
+        mode = scfg.personalization
+        cids = [int(c) for c in sampled]
+        C = len(cids)
+        chunk, n_chunks, pad = chunk_layout(C, scfg.client_chunk)
+        _, stacked_state, stacked_res = self._stack_cohort(
+            cids + cids[:1] * pad, down_dec)
+        # one round-wide step axis, so every chunk has the same shape
+        S = max(client_step_count(len(self.partitions[c]), self.ccfg.batch,
+                                  self.ccfg.epochs) for c in cids)
+        batches, step_mask = stack_client_epochs(
+            self.data, self.partitions, cids, self.ccfg.batch,
+            self.ccfg.epochs, [int(s) for s in seeds], pad_steps=max(S, 1),
+            pad_clients=pad)
+        mask_pad = np.zeros(C + pad, np.float32)
+        mask_pad[:C] = mask
+        sizes_pad = np.zeros(C + pad, np.float32)
+        sizes_pad[:C] = [len(self.partitions[c]) for c in cids]
+        agg_target = (self.global_params if mode == "none"
+                      else self._download_payload(-1))
+
+        def chunks(tree):
+            return to_chunks(tree, n_chunks, chunk)
+
+        (state_ys, local_ys, loss_ys, _, new_global,
+         new_server_state) = self._stream.run(
+            chunks(stacked_state),
+            chunks(stacked_res) if stacked_res is not None else None,
+            chunks({k: torch.as_tensor(v, device=self.device)
+                    for k, v in batches.items()}),
+            chunks(self._tensor(step_mask)), chunks(self._tensor(mask_pad)),
+            chunks(self._tensor(sizes_pad)), lr, self.server_state,
+            agg_target, down_dec)
+        self._commit_stacked(cids, mask,
+                             from_chunks(state_ys) if state_ys else {},
+                             from_chunks(local_ys)
+                             if local_ys is not None else None)
+        if mode != "local":
+            self.server_state = new_server_state
+            self._apply_aggregated(new_global, agg_target)
+        return self._round_record(sampled, mask, from_chunks(loss_ys)[:C],
+                                  down_bytes, down_dec, lr, chunks=n_chunks,
+                                  client_chunk=chunk)
 
     def run(self, rounds: Optional[int] = None,
             log_every: int = 0) -> List[Dict]:

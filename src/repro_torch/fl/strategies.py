@@ -16,7 +16,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_index, tree_leaves, tree_map
 
 
 def tree_mean(trees: List[Any], weights: Optional[List[float]] = None) -> Any:
@@ -34,6 +34,50 @@ def tree_stack(trees: List[Any]) -> Any:
     """Stack identically structured trees along a new leading client
     axis: leaves (..,) -> (C, ..)."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree: Any) -> List[Any]:
+    """Inverse of :func:`tree_stack`: split the leading axis back into a
+    list of trees."""
+    n = tree_leaves(tree)[0].shape[0]
+    return [tree_index(tree, i) for i in range(n)]
+
+
+def tree_broadcast(tree: Any, n: int) -> Any:
+    """Replicate a tree along a new leading client axis of size ``n``
+    (a copy per client, as the reference's ``broadcast_to`` gives each
+    client of its vmap its own buffer)."""
+    return tree_map(lambda x: x.unsqueeze(0).expand(n, *x.shape).clone(),
+                    tree)
+
+
+def tree_wmean_stacked(stacked: Any, weights: torch.Tensor) -> Any:
+    """Masked weighted mean over the leading client axis: ``weights`` is
+    (C,) and a client that did not arrive carries weight 0, so the mask
+    is the participation decision."""
+    total = torch.clamp_min(weights.sum(), 1e-12)
+    wn = (weights / total).float()
+    return tree_map(
+        lambda x: torch.tensordot(wn, x.float(), dims=1).to(x.dtype),
+        stacked)
+
+
+def lead(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-client () or (C,) tensor shaped to broadcast over the
+    leading axis of ``like``."""
+    return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
+
+
+def tree_sqnorm_clients(a: Any) -> torch.Tensor:
+    """Per-client squared norm of a client-stacked tree, shape (C,)."""
+    return sum(torch.sum(torch.square(x).reshape(x.shape[0], -1), dim=1)
+               for x in tree_leaves(a))
+
+
+def tree_dot_clients(a: Any, b: Any) -> torch.Tensor:
+    """Per-client inner product of two client-stacked trees, (C,)."""
+    return sum(torch.sum((x * y).reshape(x.shape[0], -1), dim=1)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def tree_sub(a: Any, b: Any) -> Any:

@@ -4,10 +4,12 @@
 Computes y = x @ W with W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) without writing W
 to device memory: each (32 x 32) tile of W is composed in shared memory
 from factor slices, cast to the activation dtype and contracted at
-once. Replaces ``repro/kernels/fedpara_matmul.py:_kernel`` (K1). The
-backward kernels (K3, which runs this kernel on the transposed weight,
-and K4) are launched from ``kernels/fedpara_grad.py``; the
-client-stacked ``_kernel_batched`` (K2) waits for the batched engine.
+once. Replaces ``repro/kernels/fedpara_matmul.py:_kernel`` (K1) and,
+with a leading client axis (x (C, B, m), factors (C, m, r) / (C, n, r),
+the client on grid axis z), ``_kernel_batched`` (K2): one launch for all
+the clients of a batched FL step. The backward kernels (K3, which runs
+this kernel on the transposed weight, and K4) are launched from
+``kernels/fedpara_grad.py``.
 """
 from __future__ import annotations
 
@@ -21,38 +23,59 @@ from repro_torch.kernels.serve_matmul import X_CODES, check_status
 KIND_CODES = {"fedpara": 0, "fedpara_tanh": 1, "pfedpara": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
-def _factor(f: torch.Tensor, rows: int, r: int, device) -> torch.Tensor:
-    if f.shape != (rows, r) or f.device != device:
-        raise ValueError(f"factor {tuple(f.shape)} on {f.device}, "
-                         f"want ({rows}, {r}) on {device}")
-    return f.float().contiguous()
+def check_operands(kind: str, act: torch.Tensor, want: tuple, factors,
+                   dims, r: int):
+    """Validate a fused-matmul launch: ``act`` has shape ``want``,
+    (rows, cols) or (C, rows, cols), in fp32/bf16; each factor is
+    (d, r), or (C, d, r) with the same C, on act's device. Returns the
+    factors as contiguous fp32 tensors."""
+    if kind not in KIND_CODES:
+        raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
+    if act.ndim not in (2, 3) or act.dtype not in X_CODES:
+        raise ValueError(f"activations must be 2-D or 3-D (client-stacked) "
+                         f"float32/bfloat16, got {tuple(act.shape)} "
+                         f"{act.dtype}")
+    if tuple(act.shape) != tuple(want):
+        raise ValueError(f"activations {tuple(act.shape)}, want {tuple(want)}")
+    lead = tuple(want[:-2])
+    out = []
+    for f, d in zip(factors, dims):
+        if tuple(f.shape) != (*lead, d, r) or f.device != act.device:
+            raise ValueError(f"factor {tuple(f.shape)} on {f.device}, "
+                             f"want {(*lead, d, r)} on {act.device}")
+        out.append(f.float().contiguous())
+    return out
+
+
+def launch(symbol: str, act: torch.Tensor, factors, out: torch.Tensor,
+           m: int, n: int, r: int, kind: str) -> None:
+    """Call ``repro_fedpara_matmul`` / ``repro_fedpara_dx`` on a checked
+    (rows, m) or (C, rows, m) activation and write ``out``."""
+    fn = getattr(build.library("fedpara_matmul"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = SIGNATURE
+        fn.restype = ctypes.c_int
+    clients = act.shape[0] if act.ndim == 3 else 1
+    ac = act.contiguous()
+    with torch.cuda.device(act.device):
+        err = fn(ac.data_ptr(), *(a.data_ptr() for a in factors),
+                 out.data_ptr(), clients, act.shape[-2], m, n, r,
+                 KIND_CODES[kind], X_CODES[act.dtype],
+                 torch.cuda.current_stream(act.device).cuda_stream)
+    check_status(err, symbol)
 
 
 def fedpara_matmul(x: torch.Tensor, x1, y1, x2, y2, *,
                    kind: str = "fedpara") -> torch.Tensor:
-    """Launch K1: x (B, m) fp32/bf16, factors (m, r) / (n, r). Returns
-    (B, n) in x's dtype."""
-    if kind not in KIND_CODES:
-        raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
-    if x.ndim != 2 or x.dtype not in X_CODES:
-        raise ValueError(f"x must be 2-D float32/bfloat16, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    rows, m = x.shape
-    n, r = y1.shape[0], x1.shape[1]
-    f = [_factor(a, d, r, x.device) for a, d in ((x1, m), (y1, n),
-                                                  (x2, m), (y2, n))]
-    xc = x.contiguous()
-    y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
-    fn = build.library("fedpara_matmul").repro_fedpara_matmul
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(xc.data_ptr(), *(a.data_ptr() for a in f), y.data_ptr(),
-                 rows, m, n, r, KIND_CODES[kind], X_CODES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    check_status(err, "fedpara_matmul")
+    """Launch K1 on x (B, m) with factors (m, r) / (n, r), or K2 on a
+    client stack x (C, B, m) with factors (C, m, r) / (C, n, r). Returns
+    (B, n) / (C, B, n) in x's dtype."""
+    m, n, r = x1.shape[-2], y1.shape[-2], x1.shape[-1]
+    f = check_operands(kind, x, (*x.shape[:-1], m), (x1, y1, x2, y2),
+                       (m, n, m, n), r)
+    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    launch("repro_fedpara_matmul", x, f, y, m, n, r, kind)
     return y

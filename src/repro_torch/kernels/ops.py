@@ -10,11 +10,15 @@ Each wrapper looks at where its activations live:
 Each wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels (:func:`reset_launches` /
-:func:`launches`).
+:func:`launches`). The client-stacked calls of the batched FL engine
+(x (C, B, m), factors (C, ·, r)) count under their own entries
+(``*_clients``), apart from the 2-D calls of the sequential engine and
+of serving, so a run shows which path it took.
 
-Serving needs no gradient, so there is no ``autograd.Function`` yet:
-a tensor that requires grad on the card raises ``NotImplementedError``
-(the backward kernels come with the training slice).
+The fused matmul trains through ``kernels.fedpara_grad.FedParaMatmul``
+(K1/K2 forward, K3/K4 backward). The serve-only kernels (K8, K10) have
+no backward, as in the reference: on the card a tensor that requires
+grad raises ``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -22,12 +26,14 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import agg as _agg
 from repro_torch.kernels import fedpara_grad as _fg
 from repro_torch.kernels import fedpara_matmul as _fm
 from repro_torch.kernels import ref, serve_matmul
 
 KERNELS = ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors", "w8_matmul",
-           "cache_residual_matmul")
+           "cache_residual_matmul", "fedpara_matmul_clients",
+           "fedpara_dx_clients", "fedpara_dfactors_clients", "dequant_acc")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -74,6 +80,12 @@ def _serve_only(x: torch.Tensor, what: str, *tensors) -> bool:
     return True
 
 
+def _count(name: str, act: torch.Tensor) -> None:
+    """One launch of the fused-matmul family: the 2-D kernel's entry,
+    or its ``*_clients`` entry for a client stack (3-D activations)."""
+    LAUNCHES[name + ("_clients" if act.ndim == 3 else "")] += 1
+
+
 def _same_dtype(x: torch.Tensor, out_dtype, what: str) -> None:
     if out_dtype is not None and out_dtype != x.dtype:
         raise ValueError(f"{what}: the kernel writes x's dtype ({x.dtype}); "
@@ -84,7 +96,9 @@ def fedpara_matmul(x, x1, y1, x2, y2, *, kind=None,
                    out_dtype=None) -> torch.Tensor:
     """y = x @ (f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ)), x (B, m) -> (B, n), differentiable
     in x and the factors; on the card K1 forward, K3 and K4 backward, W
-    never materialized."""
+    never materialized. A client stack x (C, B, m) with factors
+    (C, m, r) / (C, n, r) gives (C, B, n) through K2 and the client
+    forms of K3/K4."""
     return _fg.FedParaMatmul.apply(x, x1, y1, x2, y2, resolve_kind(kind),
                                    out_dtype)
 
@@ -99,33 +113,45 @@ def fedpara_forward(x, x1, y1, x2, y2, *, kind=None,
                                       out_dtype=out_dtype)
     _same_dtype(x, out_dtype, "fedpara_matmul")
     y = _fm.fedpara_matmul(x, x1, y1, x2, y2, kind=kind)
-    LAUNCHES["fedpara_matmul"] += 1
+    _count("fedpara_matmul", x)
     return y
 
 
 def fedpara_dx(dy, x1, y1, x2, y2, *, kind=None,
                out_dtype=None) -> torch.Tensor:
-    """dx = dy @ Wᵀ, dy (B, n) -> (B, m) in ``out_dtype`` (default dy's);
-    K3 on the card."""
+    """dx = dy @ Wᵀ, dy (B, n) -> (B, m) (or (C, B, n) -> (C, B, m) per
+    client) in ``out_dtype`` (default dy's); K3 on the card."""
     kind = resolve_kind(kind)
     if not _on_card(dy, "fedpara_dx"):
         return ref.fedpara_dx_ref(dy, x1, y1, x2, y2, kind=kind,
                                   out_dtype=out_dtype)
     dx = _fg.fedpara_dx(dy, x1, y1, x2, y2, kind=kind)
-    LAUNCHES["fedpara_dx"] += 1
+    _count("fedpara_dx", dy)
     return dx.to(out_dtype or dy.dtype)
 
 
 def fedpara_dfactors(x, dy, x1, y1, x2, y2, *, side: str, kind=None):
     """The factor gradients of one side, fp32: side "x" (dX1, dX2) (m, r),
-    side "y" (dY1, dY2) (n, r); K4 on the card (one launch per call)."""
+    side "y" (dY1, dY2) (n, r), with a leading C for a client stack; K4
+    on the card (one launch per call)."""
     kind = resolve_kind(kind)
     if not _on_card(x, "fedpara_dfactors"):
         return ref.fedpara_dfactors_ref(x, dy, x1, y1, x2, y2, side=side,
                                         kind=kind)
     out = _fg.fedpara_dfactors(x, dy, x1, y1, x2, y2, side=side, kind=kind)
-    LAUNCHES["fedpara_dfactors"] += 1
+    _count("fedpara_dfactors", x)
     return out
+
+
+def dequant_acc(acc, q, coeff) -> torch.Tensor:
+    """acc (L,) fp32 += coeff (C,) @ float(q (C, L)) for an int8, fp16 or
+    fp32 wire stack, acc updated **in place** and returned (K7 on the
+    card; the plain version, copied into acc, on the host)."""
+    if not _on_card(acc, "dequant_acc"):
+        return acc.copy_(ref.dequant_acc_ref(acc, q, coeff))
+    _agg.dequant_acc(acc, q, coeff)
+    LAUNCHES["dequant_acc"] += 1
+    return acc
 
 
 def w8_matmul(x, w, scale=None, *, out_dtype=None) -> torch.Tensor:

@@ -7,6 +7,12 @@ the host takes them) and the oracle the kernels are held against on
 the card. ``kind`` selects the paper variant: "fedpara" (identity),
 "fedpara_tanh" (tanh ⊙ tanh, supp. B) or "pfedpara" (the "+1 switch",
 §2.3).
+
+The fused-matmul functions also take the client-stacked form of the
+batched FL engine (K2 and the client-axis K3/K4): x (C, B, m) with
+factors (C, m, r) / (C, n, r), every client against its own W. The
+products run over the last two axes, so a leading client axis rides
+along.
 """
 from __future__ import annotations
 
@@ -17,11 +23,12 @@ KINDS = ("fedpara", "fedpara_tanh", "pfedpara")
 
 def fedpara_compose_ref(x1, y1, x2, y2, *, kind: str = "fedpara",
                         out_dtype=None) -> torch.Tensor:
-    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ), computed densely in fp32."""
+    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ), computed densely in fp32; (m, n), or
+    (C, m, n) for client-stacked factors."""
     if kind not in KINDS:
         raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
-    w1 = x1.float() @ y1.float().T
-    w2 = x2.float() @ y2.float().T
+    w1 = x1.float() @ y1.float().mT
+    w2 = x2.float() @ y2.float().mT
     if kind == "fedpara_tanh":
         w1, w2 = torch.tanh(w1), torch.tanh(w2)
     if kind == "pfedpara":
@@ -31,7 +38,8 @@ def fedpara_compose_ref(x1, y1, x2, y2, *, kind: str = "fedpara",
 
 def fedpara_matmul_ref(x, x1, y1, x2, y2, *, kind: str = "fedpara",
                        out_dtype=None) -> torch.Tensor:
-    """y = x @ W with W = f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ); x: (B, m) -> y: (B, n)."""
+    """y = x @ W with W = f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ); x: (B, m) -> y: (B, n), or
+    (C, B, m) -> (C, B, n) per client (K2's function)."""
     w = fedpara_compose_ref(x1, y1, x2, y2, kind=kind,
                             out_dtype=torch.float32)
     return (x.float() @ w).to(out_dtype or x.dtype)
@@ -42,8 +50,8 @@ def _variants(x1, y1, x2, y2, kind: str):
     derivatives are None where they are 1."""
     if kind not in KINDS:
         raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
-    w1 = x1.float() @ y1.float().T
-    w2 = x2.float() @ y2.float().T
+    w1 = x1.float() @ y1.float().mT
+    w2 = x2.float() @ y2.float().mT
     if kind == "fedpara_tanh":
         t1, t2 = torch.tanh(w1), torch.tanh(w2)
         return w1, w2, t1, t2, 1.0 - t1 * t1, 1.0 - t2 * t2
@@ -52,18 +60,18 @@ def _variants(x1, y1, x2, y2, kind: str):
 
 def fedpara_dx_ref(dy, x1, y1, x2, y2, *, kind: str = "fedpara",
                    out_dtype=None) -> torch.Tensor:
-    """dx = dy @ Wᵀ (K3's function); dy (B, n) -> dx (B, m). Like K3 it
-    casts W to dy's dtype before the contraction, then accumulates in
-    fp32."""
+    """dx = dy @ Wᵀ (K3's function); dy (B, n) -> dx (B, m), or
+    (C, B, n) -> (C, B, m) per client. Like K3 it casts W to dy's dtype
+    before the contraction, then accumulates in fp32."""
     w = fedpara_compose_ref(x1, y1, x2, y2, kind=kind, out_dtype=dy.dtype)
-    return (dy.float() @ w.float().T).to(out_dtype or dy.dtype)
+    return (dy.float() @ w.float().mT).to(out_dtype or dy.dtype)
 
 
 def _factor_grads(x, dy, x1, y1, x2, y2, kind: str):
     """(G1, G2) = (dW ⊙ f2(W2) ⊙ f1'(W1), dW ⊙ f1(W1) ⊙ f2'(W2)) with
     dW = xᵀ dy, densely in fp32."""
     _, _, f1, f2, d1, d2 = _variants(x1, y1, x2, y2, kind)
-    dw = x.float().T @ dy.float()
+    dw = x.float().mT @ dy.float()
     g1 = dw * f2 if d1 is None else dw * f2 * d1
     g2 = dw * f1 if d2 is None else dw * f1 * d2
     return g1, g2
@@ -72,12 +80,13 @@ def _factor_grads(x, dy, x1, y1, x2, y2, kind: str):
 def fedpara_dfactors_ref(x, dy, x1, y1, x2, y2, *, side: str,
                          kind: str = "fedpara"):
     """K4's function, fp32: side "x" gives (dX1, dX2) = (G1 Y1, G2 Y2),
-    side "y" gives (dY1, dY2) = (G1ᵀ X1, G2ᵀ X2)."""
+    side "y" gives (dY1, dY2) = (G1ᵀ X1, G2ᵀ X2); per client for x
+    (C, B, m), dy (C, B, n) and (C, ·, r) factors."""
     g1, g2 = _factor_grads(x, dy, x1, y1, x2, y2, kind)
     if side == "x":
         return g1 @ y1.float(), g2 @ y2.float()
     if side == "y":
-        return g1.T @ x1.float(), g2.T @ x2.float()
+        return g1.mT @ x1.float(), g2.mT @ x2.float()
     raise ValueError(f"side must be 'x' or 'y', got {side!r}")
 
 
@@ -88,9 +97,9 @@ def fedpara_matmul_vjp_ref(x, x1, y1, x2, y2, dy, *, kind: str = "fedpara"):
     the backward kernels reproduce without building them."""
     _, _, f1, f2, _, _ = _variants(x1, y1, x2, y2, kind)
     g1, g2 = _factor_grads(x, dy, x1, y1, x2, y2, kind)
-    dx = (dy.float() @ (f1 * f2).T).to(x.dtype)
-    return (dx, g1 @ y1.float(), g1.T @ x1.float(), g2 @ y2.float(),
-            g2.T @ x2.float())
+    dx = (dy.float() @ (f1 * f2).mT).to(x.dtype)
+    return (dx, g1 @ y1.float(), g1.mT @ x1.float(), g2 @ y2.float(),
+            g2.mT @ x2.float())
 
 
 def _dequant(w, scale) -> torch.Tensor:
@@ -119,3 +128,38 @@ def cache_residual_ref(x, w, scale, x2, y2, *, out_dtype=None
     else:
         y = xf @ (wf * (x2f @ y2f.T + 1.0))
     return y.to(out_dtype or x.dtype)
+
+
+def dequant_acc_ref(acc, q, coeff) -> torch.Tensor:
+    """K7's function: acc (L,) + coeff (C,) @ float(q (C, L)), in fp32
+    (the reference's ``kernels/ref.py:67``); returns a new tensor."""
+    return acc + torch.tensordot(coeff.float(), q.float(), dims=1)
+
+
+def is_qnode(n) -> bool:
+    """Whether a wire-tree node is an int8 ``{"q", "scale"}`` node."""
+    return isinstance(n, dict) and set(n) == {"q", "scale"}
+
+
+def tree_dequant_acc_ref(acc_tree, wire, weights):
+    """Tree-level oracle (the reference's ``kernels/ref.py:75``):
+    dequantize every client's wire leaf densely (``{"q", "scale"}`` nodes
+    to fp32) and add its weighted sum over the client axis to the
+    accumulator; returns a new tree."""
+    w = weights.float()
+
+    def walk(acc, n):
+        if is_qnode(n):
+            C = n["q"].shape[0]
+            deq = (n["q"].float().reshape(C, -1)
+                   * n["scale"].reshape(C, 1).float())
+            return acc + torch.tensordot(w, deq, dims=1).reshape(acc.shape)
+        if isinstance(n, dict):
+            return {k: walk(acc[k], v) for k, v in n.items()}
+        if isinstance(n, (list, tuple)):
+            return type(n)(walk(a, v) for a, v in zip(acc, n))
+        C = n.shape[0]
+        return acc + torch.tensordot(
+            w, n.float().reshape(C, -1), dims=1).reshape(acc.shape)
+
+    return walk(acc_tree, wire)

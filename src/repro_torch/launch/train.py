@@ -4,9 +4,17 @@ The counterpart of ``repro/launch/train.py --mode fl --model mlp``: the
 784-256-10 MLP (``kind``/``gamma`` from ``--param``/``--gamma``,
 factorized where that saves parameters) trains on a synthetic 28x28
 10-class image set split over ``--clients`` clients by a Dirichlet(0.5)
-draw, through the sequential ``FLServer`` with identity codecs. Each
-round prints its record; the run ends with the reference's final JSON
-record (the last round's, plus ``comm_up_mb`` / ``comm_down_mb``).
+draw, through ``FLServer`` with identity codecs. Each round prints its
+record; the run ends with the reference's final JSON record (the last
+round's, plus ``comm_up_mb`` / ``comm_down_mb``).
+
+* ``--engine`` picks the round engine as the reference's CLI does, with
+  the same default, ``batched``: every sampled client trained in one
+  client-stacked program (the client-stacked kernels K2/K3/K4 with
+  ``--use-kernels``); ``streaming`` runs it in chunks of
+  ``--client-chunk`` clients and folds the uploads with the
+  dequant-accumulate kernel (K7); ``sequential`` trains the clients one
+  after another. ``async`` is not ported yet (ROADMAP A12) and raises.
 
 * ``--device`` defaults to ``cuda`` and raises without a card; pass
   ``--device cpu`` to run the plain PyTorch versions on the host.
@@ -17,12 +25,12 @@ record (the last round's, plus ``comm_up_mb`` / ``comm_down_mb``).
   ``jax.random``-initialized MLP), so a port run can match a reference
   run record for record; without it the port draws its own seeded init.
 
-Not ported yet: ``--mode pods`` (ROADMAP A14/A15), the batched,
-streaming and async engines (A9, A10, A12), codecs other than identity
-(A7), rank tiers, faults and defenses (A11).
+Not ported yet: ``--mode pods`` (ROADMAP A14/A15), the async engine
+(A12), codecs other than identity (A7), rank tiers, faults and defenses
+(A11).
 
     python -m repro_torch.launch.train --mode fl --model mlp --rounds 3 \\
-        --clients 20 --use-kernels
+        --clients 20 --use-kernels --engine streaming --client-chunk 4
 """
 from __future__ import annotations
 
@@ -56,6 +64,10 @@ def mlp_task(seed: int):
 
 def _mlp_loss(cfg, p, b):
     return rec.mlp_loss(p, cfg, b)
+
+
+def _mlp_loss_clients(cfg, p, b):
+    return rec.mlp_loss_clients(p, cfg, b)
 
 
 def _sync(dev: torch.device) -> None:
@@ -96,8 +108,10 @@ def build_fl(args: argparse.Namespace) -> FLServer:
                                  personalization=args.personalization,
                                  uplink_codec=args.uplink_codec,
                                  downlink_codec=args.downlink_codec,
-                                 engine=args.engine),
-                    eval_fn=eval_fn, device=dev)
+                                 engine=args.engine,
+                                 client_chunk=args.client_chunk),
+                    eval_fn=eval_fn, device=dev,
+                    loss_fn_clients=functools.partial(_mlp_loss_clients, cfg))
 
 
 def final_record(srv: FLServer) -> Dict[str, Any]:
@@ -128,9 +142,14 @@ def parser() -> argparse.ArgumentParser:
                     help="identity only ('' / fp32 / none / identity)")
     ap.add_argument("--downlink-codec", default="",
                     help="identity only ('' / fp32 / none / identity)")
-    ap.add_argument("--engine", default="sequential", choices=["sequential"],
-                    help="FL round engine (the batched, streaming and async "
-                         "engines are not ported yet)")
+    ap.add_argument("--engine", default="batched",
+                    choices=["sequential", "batched", "streaming", "async"],
+                    help="FL round engine: the sequential loop, the "
+                         "client-batched program, or the streaming chunked "
+                         "rounds (async is not ported yet: ROADMAP A12)")
+    ap.add_argument("--client-chunk", type=int, default=16,
+                    help="streaming engine: clients per chunk; round memory "
+                         "peaks at O(client_chunk * model)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="train every FedPara dense() through the fused "
                          "differentiable matmul: K1 forward, K3/K4 backward, "

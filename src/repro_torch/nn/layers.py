@@ -22,6 +22,12 @@ training path. With ``use_kernels`` a factor node trains through
 ``kernels.fedpara_grad.FedParaMatmul`` (K1 forward, K3/K4 backward):
 the counterpart of the reference's ``use_pallas``. Training keeps
 ``gram_batch`` at 0, so every row count takes K1.
+
+:func:`dense_clients` is the client-stacked layer of the batched FL
+engine: every leaf carries a leading client axis and each client
+multiplies by its own W (K2 forward, the client forms of K3/K4
+backward). It is a function of its own because a 3-D factor in
+:func:`dense` means a layer-stacked scan node, as in the reference.
 """
 from __future__ import annotations
 
@@ -119,6 +125,23 @@ def dense(sub: Dict[str, torch.Tensor], x: torch.Tensor, pcfg: ParamCfg,
                     xk, sub["x1"], sub["y1"], sub["x2"], sub["y2"],
                     kind=pcfg.kind, out_dtype=dtype)
             return y.reshape(*lead, y.shape[-1])
+    w = materialize_auto(sub, pcfg.kind, dtype)
+    return torch.matmul(x.to(dtype), w)
+
+
+def dense_clients(sub: Dict[str, torch.Tensor], x: torch.Tensor,
+                  pcfg: ParamCfg, dtype=torch.float32,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """y[c] = x[c] @ W[c] for a client stack: x (C, B, m) and a node
+    whose leaves lead with the same C (factors (C, m, r) / (C, n, r), or
+    a dense w (C, m, n)) -> (C, B, n). With ``use_kernels`` a factor
+    node goes through ``ops.fedpara_matmul`` on the stack (one K2
+    launch for all clients); otherwise each client's W is materialized
+    and multiplied, the reference's plain path under its client vmap."""
+    if use_kernels and "x1" in sub and pcfg.kind in FUSED_KINDS:
+        return ops.fedpara_matmul(x.to(dtype), sub["x1"], sub["y1"],
+                                  sub["x2"], sub["y2"], kind=pcfg.kind,
+                                  out_dtype=dtype)
     w = materialize_auto(sub, pcfg.kind, dtype)
     return torch.matmul(x.to(dtype), w)
 

@@ -7,6 +7,12 @@ Both weight matrices go through :func:`repro_torch.nn.layers.dense`, so
 client on the fused differentiable matmul (K1 forward, K3/K4 backward;
 W never materialized) with no model-code change, and without it the
 layer materializes W and multiplies, as the reference's plain path does.
+
+The ``*_clients`` functions are the same model on a client stack (every
+leaf and the batch lead with a client axis C), the batched FL engine's
+counterpart of the reference's ``jax.vmap`` over clients: each client
+runs its own weights, and the loss is one mean cross-entropy per
+client, shape (C,).
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ParamCfg
-from repro_torch.nn.layers import dense, init_dense
+from repro_torch.nn.layers import dense, dense_clients, init_dense
 
 
 @dataclass(frozen=True)
@@ -64,3 +70,32 @@ def mlp_accuracy(params: Dict, cfg: MLPConfig, batch: Dict) -> torch.Tensor:
     logits = mlp_apply(params, cfg, batch["x"])
     return torch.mean((torch.argmax(logits, -1) == batch["y"].long()
                        ).float())
+
+
+def mlp_apply_clients(params: Dict, cfg: MLPConfig,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Client stack: params leaves (C, ...), x (C, B, in_dim) -> logits
+    (C, B, classes), fp32."""
+    use = cfg.param.use_kernels
+    h = F.relu(dense_clients(params["fc1"], x, cfg.param, torch.float32, use)
+               + params["b1"][:, None, :])
+    return (dense_clients(params["fc2"], h, cfg.param, torch.float32, use)
+            + params["b2"][:, None, :])
+
+
+def mlp_loss_clients(params: Dict, cfg: MLPConfig,
+                     batch: Dict) -> torch.Tensor:
+    """Per-client mean cross-entropy of ``batch = {"x": (C, B, in_dim),
+    "y": (C, B)}``, shape (C,)."""
+    logits = mlp_apply_clients(params, cfg, batch["x"])
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, 2, batch["y"].long()[..., None]
+                                    )[..., 0], dim=1)
+
+
+def mlp_accuracy_clients(params: Dict, cfg: MLPConfig,
+                         batch: Dict) -> torch.Tensor:
+    """Per-client top-1 accuracy of a client-stacked batch, shape (C,)."""
+    logits = mlp_apply_clients(params, cfg, batch["x"])
+    return torch.mean((torch.argmax(logits, -1) == batch["y"].long()
+                       ).float(), dim=1)

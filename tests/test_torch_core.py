@@ -229,8 +229,11 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+        "new = {'repro_torch.kernels.agg', 'repro_torch.fl.batch_engine', "
+        "'repro_torch.fl.stream_engine'}\n"
+        "print(len(mods), bad, sorted(new - set(mods)))\n"
+        "sys.exit(1 if bad or len(mods) < 20 or not new <= set(mods) "
+        "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(REPO / "src"),
@@ -259,9 +262,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from repro_torch.fl.strategies import make_strategy
     from repro_torch.launch import train
 
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        FLServer(lambda p, b: p["w"].sum(), {"w": torch.zeros(3)}, {}, [],
-                 make_strategy("fedavg"), ClientConfig(), ServerConfig())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train.main(["--mode", "fl", "--model", "mlp", "--rounds", "1"])
+    for engine in ("sequential", "batched", "streaming"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FLServer(lambda p, b: p["w"].sum(), {"w": torch.zeros(3)}, {},
+                     [], make_strategy("fedavg"), ClientConfig(),
+                     ServerConfig(engine=engine))
+    for engine in ([], ["--engine", "batched"],
+                   ["--engine", "streaming", "--client-chunk", "3"],
+                   ["--engine", "sequential"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--mode", "fl", "--model", "mlp", "--rounds", "1",
+                        *engine])
     assert resolve_device("cpu") == torch.device("cpu")

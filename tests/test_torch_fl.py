@@ -304,7 +304,10 @@ def test_fl_server_refuses_what_is_not_ported():
     params = interop.from_jax_params(_np(jparams))
     args = (lambda p, b: 0.0, params, get_task()["tr"], get_task()["parts"],
             make_strategy("fedavg"), client.ClientConfig())
-    for kw, item in (({"engine": "batched"}, "A9"),
+    for kw, item in (({"engine": "async"}, "A12"),
+                     ({"state_store": "arena", "engine": "batched"}, "A10"),
+                     ({"data_stream": "chunked", "engine": "streaming"},
+                      "A10"),
                      ({"gamma_tiers": (0.1, 0.3)}, "A11"),
                      ({"defense": "clip"}, "A11"),
                      ({"recover_retries": 1}, "A11"),
