@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch port on one NVIDIA H100.
 
 Drives the port's paths (``repro_torch``) on the card through its
-hand-written CUDA kernels: serving at qwen3-8b's full width, and FL
+hand-written CUDA kernels: serving at qwen3-8b's full width, FL
 training of the paper's MLP at its full width through the sequential,
-batched and streaming engines; holds every kernel against its plain
+batched and streaming engines, and the checkpoint -> serve path of a
+full-width pFedPara federation; holds every kernel against its plain
 PyTorch version. Phases, each printed on its own line; any failed check
 raises, so the script exits non-zero:
 
@@ -25,11 +26,17 @@ raises, so the script exits non-zero:
    64 rows; the dequant-accumulate K7 for 16 clients over one qwen3-8b
    layer's factors (int8, fp16 and fp32 wire; ``torch.addmv`` on the
    widened stack as the yardstick), a ragged length, an unaligned leaf,
-   zero coefficients and the MLP's streaming leaves;
-3. 36-layer qwen3-8b, ``kind=fedpara``, precompose int8: batch 4,
-   prompt 128, 16 greedy tokens through K8;
+   zero coefficients and the MLP's streaming leaves; the compose
+   kernels K5 (W of one projection, fp32, fp16 and bf16, all kinds) and
+   K6 (the projection stacked over 2, 4 and, to fp16 W, 36 layers, the
+   depths of phases 10 and 4) at the same shapes, and at the reference
+   tests' ragged shapes;
+3. 36-layer qwen3-8b, ``kind=fedpara``, precompose int8: the cache
+   composed by K5 (at least 7 x 36 launches, build seconds reported),
+   batch 4, prompt 128, 16 greedy tokens through K8;
 4. the same weights in fused mode (K1 on prefill, the Gram identity on
-   decode) against precompose fp16 (K8), fp32 activations;
+   decode) against precompose fp16 (the cache composed by K6, at least
+   7 stacked launches; K8), fp32 activations;
 5. pFedPara, 4 resident users, precompose int8, 4 layers: K10 (bf16)
    against each user's merge-then-plain logits (fp32);
 6. 2 layers: the engine on the card against the same engine on the
@@ -44,7 +51,15 @@ raises, so the script exits non-zero:
    --clients 50 --use-kernels`` with ``--engine batched`` on the card
    and on the host, and with ``--engine streaming --client-chunk 3`` on
    the card (8 clients a round: 3 chunks, one pad slot);
-10. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
+10. the checkpoint -> serve path (:func:`phase_checkpoint_serve`):
+    qwen3-8b at its published widths, 2 layers, pFedPara, one FL round
+    on the card (K1, K3, K4) against the same round with the kernels
+    off (loss and parameters 1e-4), checkpointed (bytes, save and
+    restore seconds printed) and restored bitwise, then served from the
+    checkpoint: the global model through its int8 (K5) and fp16 (K6)
+    caches against fused, the 2 users through K10 and fused against
+    merge-then-plain;
+11. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--quick`` builds and checks the kernels at two shapes and stops;
@@ -91,6 +106,9 @@ REPLACES = {
     "fedpara_dfactors_clients": "src/repro/kernels/fedpara_grad.py:191 "
                                 "_dfactors_body (lead=True)",
     "dequant_acc": "src/repro/kernels/agg.py:63 _agg_body",
+    "fedpara_compose": "src/repro/kernels/fedpara_compose.py:26 _kernel",
+    "fedpara_compose_stacked": "src/repro/kernels/fedpara_compose.py:101 "
+                               "_kernel_batched",
 }
 SOURCES = {"fedpara_matmul": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_dx": "src/repro_torch/csrc/fedpara_matmul.cu",
@@ -100,7 +118,12 @@ SOURCES = {"fedpara_matmul": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_matmul_clients": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_dx_clients": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_dfactors_clients": "src/repro_torch/csrc/fedpara_grad.cu",
-           "dequant_acc": "src/repro_torch/csrc/agg.cu"}
+           "dequant_acc": "src/repro_torch/csrc/agg.cu",
+           "fedpara_compose": "src/repro_torch/csrc/fedpara_compose.cu",
+           "fedpara_compose_stacked":
+               "src/repro_torch/csrc/fedpara_compose.cu"}
+STACK_LAYERS = (2, 4)              # K6: layer-stacked nodes (2 timed)
+MAIN_STACK = 36                    # K6 at phase 4's depth (fp16, timed)
 
 
 def say(phase: str, **kw) -> None:
@@ -159,6 +182,13 @@ def bound_ms(nbytes: float, flops_bf16: float = 0.0,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def compose_ops(m: int, n: int, r: int) -> float:
+    """The fp32 operations of composing W = f1(X1Y1ᵀ) ⊙ f2(X2Y2ᵀ): two
+    rank-r products, 4mnr (the Hadamard product and the variant, a few
+    per weight, are left out)."""
+    return 4.0 * m * n * r
+
+
 def fedpara_ops(rows: int, m: int, n: int, r: int, kind: str,
                 x_bits: int = 16) -> dict:
     """The operations y = x·W needs, W = f1(X1Y1ᵀ) ⊙ f2(X2Y2ᵀ): the
@@ -167,8 +197,8 @@ def fedpara_ops(rows: int, m: int, n: int, r: int, kind: str,
     factors, the Hadamard-Gram identity (2·rows·r²(m+n) fp32, plus
     2·rows·r(m+n) for pFedPara's "+1"), priced at the card's rates."""
     mm = 2.0 * rows * m * n
-    compose = ({"f16": mm, "f32": 4.0 * m * n * r} if x_bits == 16
-               else {"f16": 0.0, "f32": 4.0 * m * n * r + mm})
+    compose = ({"f16": mm, "f32": compose_ops(m, n, r)} if x_bits == 16
+               else {"f16": 0.0, "f32": compose_ops(m, n, r) + mm})
     if kind == "fedpara_tanh":
         return compose
     gram = {"f16": 0.0, "f32": 2.0 * rows * r * r * (m + n)
@@ -340,6 +370,8 @@ def phase_kernels(clock: Clock, quick: bool):
                        io32 + 4 * 2 * r * (m + n), f16=fo["f16"],
                        f32=fo["f32"], timed=False)
             del x32
+        _compose_cases(record, gen, pname, m, n, r, (x1, y1, x2, y2),
+                       quick)
         if not quick:
             _backward_cases(record, gen, pname, m, n, r, (x1, y1, x2, y2))
             _client_cases(record, gen, pname, m, n, r)
@@ -404,6 +436,7 @@ def phase_kernels(clock: Clock, quick: bool):
                             C, rows, m, n, r, torch.float32, 1e-5,
                             timed=(rows, m, n, r) in mlp)
     _agg_cases(record, gen, quick)
+    _compose_ragged_cases(record, gen)
     if quick:
         return cases
     # ragged fp32 shapes: every edge masked, tighter tolerance
@@ -432,6 +465,82 @@ def phase_kernels(clock: Clock, quick: bool):
                                               ux2, uy2), None, 1e-5, 0,
                timed=False)
     return cases
+
+
+# tolerance of the compose kernels by output type: fp32 sums in another
+# order; one fp16 ulp (2^-10 of the largest weight); one bf16 ulp (2^-7)
+COMPOSE_TOL = {torch.float32: 1e-5, torch.float16: 1e-3,
+               torch.bfloat16: 1e-2}
+_DT_NAME = {torch.float32: "fp32", torch.float16: "fp16",
+            torch.bfloat16: "bf16"}
+
+
+def _compose_case(record, tag, fac, kind, dt, timed):
+    """K5 (2-D factors) or K6 (stacked) against the plain compose, W in
+    ``dt``; bound: the compose's fp32 operations, or the factor reads
+    and W's write, whichever is longer."""
+    from repro_torch.kernels import ops, ref
+
+    lead = fac[0].shape[0] if fac[0].ndim == 3 else 1
+    m, r = fac[0].shape[-2:]
+    n = fac[1].shape[-2]
+    kernel = "fedpara_compose" + ("_stacked" if fac[0].ndim == 3 else "")
+    nbytes = lead * (4 * 2 * r * (m + n) + dt.itemsize * m * n)
+    record(kernel, f"{tag} {_DT_NAME[dt]} {kind}",
+           lambda: ops.fedpara_compose(*fac, kind=kind, out_dtype=dt),
+           lambda: ref.fedpara_compose_ref(*fac, kind=kind, out_dtype=dt),
+           None, COMPOSE_TOL[dt], nbytes, f32=lead * compose_ops(m, n, r),
+           timed=timed)
+
+
+def _compose_cases(record, gen, pname, m, n, r, fac, quick):
+    """K5 at one full-width projection: fp32 W for all kinds (fedpara
+    timed: the int8 cache's compose), fp16 and bf16 W; K6 on the
+    projection's factors stacked over 2 and 4 layers (pfedpara to fp16
+    W over 2 layers timed: phase 10's fp16 cache) and over the 36 layers
+    of phase 4's fp16 cache (fedpara to fp16 W, timed), the slab offsets
+    there past 2^32 bytes; no library call computes it."""
+    tag = f"{pname} {m}x{n} r={r}"
+    for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+        _compose_case(record, tag, fac, kind, torch.float32,
+                      timed=kind == "fedpara")
+    for dt in (torch.float16, torch.bfloat16):
+        _compose_case(record, tag, fac, "fedpara", dt, timed=False)
+    if quick:
+        return
+    for L in (*STACK_LAYERS, MAIN_STACK):
+        per = [_factors(gen, m, n, r) for _ in range(L - 1)]
+        stack = tuple(torch.stack([f, *(p[i] for p in per)])
+                      for i, f in enumerate(fac))
+        del per
+        if L == MAIN_STACK:
+            _compose_case(record, f"{tag} L={L}", stack, "fedpara",
+                          torch.float16, timed=True)
+        else:
+            for dt in (torch.float16, torch.float32):
+                _compose_case(record, f"{tag} L={L}", stack, "fedpara", dt,
+                              timed=False)
+            _compose_case(record, f"{tag} L={L}", stack, "pfedpara",
+                          torch.float16, timed=L == STACK_LAYERS[0])
+        del stack
+        torch.cuda.empty_cache()
+
+
+def _compose_ragged_cases(record, gen):
+    """K5 and K6 at the reference tests' ragged shapes
+    (``tests/test_kernels.py``, ``tests/test_fl_batched.py``): every
+    edge masked, all kinds, fp32 W (fp16 too for the stacked form)."""
+    for m, n, r in ((64, 64, 4), (100, 52, 3), (256, 256, 16),
+                    (300, 128, 9)):
+        fac = _factors(gen, m, n, r)
+        for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+            _compose_case(record, f"ragged {m}x{n} r={r}", fac, kind,
+                          torch.float32, timed=False)
+    fac = _client_factors(gen, 2, 96, 130, 4)
+    for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+        for dt in (torch.float32, torch.float16):
+            _compose_case(record, "ragged C=2 96x130 r=4", fac, kind, dt,
+                          timed=False)
 
 
 def _both_sides(fn, x, dy, fac, kind):
@@ -639,13 +748,16 @@ def phase_serve(params, measurements):
 
     cfg = _cfg("fedpara", 36)
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, mode="precompose", cache_dtype="int8",
                       batch=4)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    check(ops.launches()["fedpara_compose"] >= 7 * 36,
+          f"K5 composed {ops.launches()['fedpara_compose']} int8 cache "
+          "layers, want >= 7 x 36")
     prompts = _prompts(4, 128, cfg.vocab_size, 1)
-    ops.reset_launches()
     rep = serve_timed(eng, prompts, 16)
     torch.cuda.synchronize()
     counts = ops.launches()
@@ -734,10 +846,19 @@ def phase_parity(params, measurements):
     cfg = _cfg("fedpara", 36)
     opts = ModelOptions(attn_chunk=64, dtype=torch.float32)
     prompts = _prompts(4, 128, cfg.vocab_size, 2)
+    ops.reset_launches()
+    t0 = time.perf_counter()
     eng16 = ServeEngine(cfg, params, mode="precompose", cache_dtype="fp16",
                         batch=4, opts=opts)
+    torch.cuda.synchronize()
+    build16_s = time.perf_counter() - t0
+    check(ops.launches()["fedpara_compose_stacked"] >= 7,
+          f"K6 composed {ops.launches()['fedpara_compose_stacked']} "
+          "stacked fp16 cache nodes, want >= 7")
     toks = eng16.generate(prompts, 4)
     want = _forced(eng16, prompts, toks)
+    torch.cuda.synchronize()
+    counts16 = ops.launches()
     del eng16
     torch.cuda.empty_cache()
     fused = ServeEngine(cfg, params, mode="fused", batch=4, opts=opts)
@@ -756,10 +877,12 @@ def phase_parity(params, measurements):
     check([i for i in impls if i != "einsum"] == ["gram"],
           f"fused decode plan {impls}, want the Gram identity")
     say("mode_parity", rel_errs=errs, launches=counts, fused_impls=impls,
-        fused_host_s=secs)
+        fused_host_s=secs, fp16_cache_build_s=build16_s,
+        fp16_launches=counts16)
     measurements["parity"] = {"rel_errs": errs, "launches": counts,
-                              "impls": impls}
-    return counts
+                              "fp16_launches": counts16, "impls": impls,
+                              "fp16_cache_build_s": build16_s}
+    return {k: counts[k] + counts16[k] for k in counts}
 
 
 def _merge_user(global_params, local):
@@ -1056,6 +1179,207 @@ def phase_engines(measurements):
             for k in counts["batched"]}
 
 
+# ------------------------------------------------------------ phase 10
+
+def _equal_trees(a, b, what: str) -> int:
+    """Two trees hold the same paths and bitwise-equal leaves; returns
+    the number of leaves compared."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    check([p for p, _ in fa] == [p for p, _ in fb],
+          f"{what}: paths differ")
+    for (p, x), (_, y) in zip(fa, fb):
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and torch.equal(x, y.to(x.device)),
+              f"{what}: leaf {p} differs")
+    return len(fa)
+
+
+def phase_checkpoint_serve(card: str, measurements):
+    """The checkpoint -> serve path at qwen3-8b's published widths, depth
+    cut to 2 layers, ``kind=pfedpara`` at the config's gamma: one round
+    of the sequential ``FLServer`` (2 clients, all taking part, FedAvg,
+    lr 0.05, batch 8, 12 sequences of 16 tokens each, kernels on, fp32:
+    K1, K3, K4), held against the same round with the kernels off (the
+    plain versions, on the card) from the same init and data: records
+    equal, mean loss and every global and personal parameter within
+    1e-4, the reference's engine tolerance, as phase 8 holds the MLP;
+    ``save_checkpoint``; ``load_fl_checkpoint`` and a fresh
+    server's ``restore_checkpoint``, both bitwise equal to the trained
+    server's trees; then served from the checkpoint: the global model
+    fused (K1 on the prompt, the Gram identity on decode) against its
+    int8 cache (K5, then K8) at 8e-2 and its fp16 cache (K6, then K8) at
+    2e-2, and the 2 users precomposed (K10) and fused against each
+    user's merge-then-plain logits at 8e-2 and 1e-4, each with 4 decode
+    steps. The bounds are the reference's: int8 8e-2 and fused 1e-4
+    (``tests/test_serve.py:233-237``), 2e-2 its precompose-vs-fused
+    smoke gate, which runs the fp16 cache. The embedding gradient's
+    atomics make card training differ from run to run in the last bits,
+    so the two rounds agree within the tolerance, and the checkpoint
+    restores bitwise."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_token_lm_dataset
+    from repro_torch.fl import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_federation, seeded_params
+    from repro_torch.nn.transformer import ModelOptions, build_model
+    from repro_torch.serve import ServeEngine, load_fl_checkpoint
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _cfg("pfedpara", 2)
+    train_opts = ModelOptions(dtype=torch.float32)
+    d = REPO / "build" / "chip_smoke" / "fl_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free_before = shutil.disk_usage(d).free
+    init = seeded_params(cfg, 0, "cuda")
+    plain_srv = build_federation(
+        cfg, ModelOptions(use_kernels=False, dtype=torch.float32), rounds=1,
+        clients=2, device="cuda", params=tree_map(torch.clone, init))
+    plain_srv.run()
+    ops.reset_launches()
+    srv = build_federation(cfg, train_opts, rounds=1, clients=2,
+                           device="cuda", params=tree_map(torch.clone, init))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = ops.launches()
+    for kernel in ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors"):
+        check(counts[kernel] > 0, f"{kernel} never launched in training")
+    rec = srv.history[-1]
+    check(rec["participants"] == 2 and np.isfinite(rec["mean_loss"]),
+          f"training round {rec}")
+    _same_rounds({"server": srv}, {"server": plain_srv}, "kernels vs plain")
+    loss_d = abs(rec["mean_loss"] - plain_srv.history[-1]["mean_loss"])
+    pairs = list(zip(tree_leaves(srv.global_params),
+                     tree_leaves(plain_srv.global_params)))
+    for u in sorted(plain_srv.local_trees):
+        pairs += zip(tree_leaves(srv.local_trees[u]),
+                     tree_leaves(plain_srv.local_trees[u]))
+    param_d = max(float((a - b).abs().max()) for a, b in pairs)
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(plain_srv.global_params), tree_leaves(init)))
+    check(moved > 1e-5, f"training moved the weights by only {moved}")
+    check(loss_d < 1e-4, f"kernels vs plain mean_loss differ by {loss_d}")
+    check(param_d < 1e-4, f"kernels vs plain params differ by {param_d}")
+    vs_plain = {"loss_diff": loss_d, "param_maxdiff": param_d,
+                "moved": moved,
+                "plain_mean_loss": plain_srv.history[-1]["mean_loss"]}
+    del plain_srv, init, pairs
+    torch.cuda.empty_cache()
+
+    mgr = CheckpointManager(str(d))
+    t0 = time.perf_counter()
+    step_dir = Path(srv.save_checkpoint(mgr))
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    t0 = time.perf_counter()
+    gp, local, _, step = load_fl_checkpoint(str(d), device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == 1 and sorted(local) == [0, 1], f"step {step}, users "
+          f"{sorted(local)}")
+    n_leaves = _equal_trees(srv.global_params, gp, "global params")
+    for u in local:
+        n_leaves += _equal_trees(srv.local_trees[u], local[u],
+                                 f"user {u}")
+    fresh = build_federation(cfg, train_opts, rounds=1, clients=2,
+                             device="cuda", params=gp)
+    check(fresh.restore_checkpoint(mgr) == 1, "restored step")
+    _equal_trees(srv.global_params, fresh.global_params, "fresh server")
+    for u in srv.local_trees:
+        _equal_trees(srv.local_trees[u], fresh.local_trees[u],
+                     f"fresh server user {u}")
+    ra, rb = fresh.rng.get_state(), srv.rng.get_state()
+    check(fresh.history == srv.history and fresh.round_idx == 1
+          and fresh.comm_log.up_bytes == srv.comm_log.up_bytes
+          and fresh.comm_log.down_bytes == srv.comm_log.down_bytes
+          and ra[0] == rb[0] and np.array_equal(ra[1], rb[1])
+          and ra[2:] == rb[2:], "fresh server's host state differs")
+    del fresh, srv
+    torch.cuda.empty_cache()
+
+    opts = ModelOptions(attn_chunk=64, dtype=torch.float32)
+    # prompts from the training data's distribution, 8 tokens, as the
+    # reference's checkpoint -> serve test draws them
+    prompts = torch.from_numpy(make_token_lm_dataset(2, 8, cfg.vocab_size,
+                                                     seed=2)).long()
+    # the global model, no users: fused (K1 on the prompt, the Gram
+    # identity on decode) against the int8 cache (K5 pfedpara, K8) at
+    # the reference's int8 bound and the fp16 cache (K6, K8) at its
+    # precompose-vs-fused smoke bound
+    ops.reset_launches()
+    fused = ServeEngine(cfg, gp, mode="fused", batch=2, opts=opts)
+    toks = fused.generate(prompts, 4)
+    want = _forced(fused, prompts, toks)
+    del fused
+    glob_errs, build_s = {}, {}
+    for cache_dtype, tol, kernel, need in (
+            ("int8", 8e-2, "fedpara_compose", 7 * 2),
+            ("fp16", 2e-2, "fedpara_compose_stacked", 7)):
+        before = ops.launches()[kernel]
+        t0 = time.perf_counter()
+        pre = ServeEngine(cfg, gp, mode="precompose", cache_dtype=cache_dtype,
+                          batch=2, opts=opts)
+        torch.cuda.synchronize()
+        build_s[cache_dtype] = time.perf_counter() - t0
+        check(ops.launches()[kernel] - before >= need,
+              f"{kernel} composed {ops.launches()[kernel] - before} "
+              f"{cache_dtype} cache nodes, want >= {need}")
+        got = _forced(pre, prompts, toks)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        check(max(errs) < tol, f"global precompose {cache_dtype} vs fused "
+              f"rel err {errs} >= {tol}")
+        glob_errs[cache_dtype] = errs
+        del pre
+    # the users: from_checkpoint, int8 cache (K10) and fused, against
+    # each user's merged tree through the plain model
+    uids = [0, 1]
+    plain = build_model(cfg, ModelOptions(use_kernels=False,
+                                          dtype=torch.float32))
+    glob = comm.split_pfedpara(gp)[0]
+    user_errs = {}
+    for mode, tol in (("precompose", 8e-2), ("fused", 1e-4)):
+        eng = ServeEngine.from_checkpoint(str(d), cfg, mode=mode,
+                                          cache_dtype="int8", batch=2,
+                                          opts=opts)
+        utoks = eng.generate(prompts, 4, uids)
+        steps = _forced(eng, prompts, utoks, uids)
+        check(all(bool(torch.isfinite(x).all()) for x in steps),
+              f"{mode} users: non-finite logits")
+        errs = []
+        for u in uids:
+            full = _merge_user(glob, local[u])
+            c = plain.init_cache(1, 8, "cuda")
+            with torch.no_grad():
+                _, w = plain.prefill(full, prompts[u:u + 1].cuda(), c)
+            errs.append(rel_err(steps[0][u:u + 1], w.cpu()))
+        check(max(errs) < tol, f"{mode} users vs merge-then-plain {errs} "
+              f">= {tol}")
+        user_errs[mode] = errs
+        del eng
+    counts_serve = ops.launches()
+    check(counts_serve["cache_residual_matmul"] > 0, "K10 never launched")
+    shutil.rmtree(d, ignore_errors=True)
+    out = {"card": card, "layers": 2, "kind": "pfedpara",
+           "train_round_s": train_s, "train_record": rec,
+           "train_vs_plain": vs_plain,
+           "checkpoint_bytes": ckpt_bytes, "leaves_checked": n_leaves,
+           "disk_free_before": free_before, "save_s": save_s,
+           "restore_s": restore_s, "cache_build_s": build_s,
+           "global_precompose_vs_fused_rel_errs": glob_errs,
+           "user_rel_errs": user_errs, "launches_train": counts,
+           "launches_serve": counts_serve}
+    say("checkpoint_serve", **out)
+    measurements["checkpoint_serve"] = out
+    return {k: counts[k] + counts_serve[k] for k in counts}
+
+
 # ------------------------------------------------------------ main
 
 def _layer_sums(cases):
@@ -1127,7 +1451,15 @@ def _summary(sums, launches, cases):
             "dequant_acc": (
                 f"layer C={AGG_CLIENTS} L={AGG_L} fp32",
                 f"{AGG_CLIENTS} clients' fp32 (identity-codec) wire over "
-                "one qwen3-8b layer's FedPara factors, one launch")}
+                "one qwen3-8b layer's FedPara factors, one launch"),
+            "fedpara_compose": ("fp32 fedpara", "one layer's 7 projections "
+                                "composed to fp32 W (the int8 cache's "
+                                "compose), one launch each"),
+            "fedpara_compose_stacked": (
+                f"L={MAIN_STACK} fp16 fedpara",
+                f"each of one layer's 7 projections stacked over "
+                f"{MAIN_STACK} layers, composed to fp16 W (phase 4's fp16 "
+                "cache), one launch each")}
     out = []
     for kernel, (key, at) in plan.items():
         tot = sums[kernel].get(key) or _case(cases, kernel, key)
@@ -1184,6 +1516,9 @@ def main() -> int:
         for phase in (phase_train, phase_engines):
             for k, v in phase(measurements).items():
                 launches[k] += v
+        torch.cuda.empty_cache()
+        for k, v in phase_checkpoint_serve(card, measurements).items():
+            launches[k] += v
         missing = [k for k in ops.KERNELS if launches[k] == 0]
         check(not missing, f"kernels never launched on the main path: "
               f"{missing}")

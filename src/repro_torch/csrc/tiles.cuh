@@ -12,6 +12,9 @@
 //   * ResidTile   — cache tile ⊙ (X2ᵤY2ᵤᵀ + 1) for one user (K9/K10);
 //   * FedParaTile — f1(X1Y1ᵀ) ⊙ f2(X2Y2ᵀ) (K1).
 //
+// The compose kernels K5/K6 (fedpara_compose.cu) use the rank-r
+// `compose` below on its own, with the Skinny shape, and write W.
+//
 // A block (256 threads) owns BN = 32 output columns and a group of
 // activation rows, and walks the contraction axis m in steps of BK
 // inside the block (Hopper has no sequential grid axis). Two block

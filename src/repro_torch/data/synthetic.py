@@ -1,7 +1,7 @@
-"""Deterministic synthetic image data (numpy), a copy of the reference's
-``repro/data/synthetic.py::make_image_dataset`` and
-``train_test_split``; the tests pin the copy to the reference bit for
-bit.
+"""Deterministic synthetic data (numpy), a copy of the reference's
+``repro/data/synthetic.py::make_image_dataset``,
+``make_token_lm_dataset`` and ``train_test_split``; the tests pin the
+copy to the reference bit for bit.
 
 Images: class-conditional frequency templates plus per-sample Gaussian
 noise, so the classes are learnable and FL training dynamics mean
@@ -38,6 +38,23 @@ def make_image_dataset(
     y = rng.randint(0, classes, n).astype(np.int32)
     x = templates[y] + noise * rng.randn(n, size, size, channels).astype(np.float32)
     return {"x": x.astype(np.float32), "y": y}
+
+
+def make_token_lm_dataset(n_seq: int, seq_len: int, vocab: int,
+                          seed: int = 0) -> np.ndarray:
+    """(n_seq, seq_len) int32 token streams for LM smoke training:
+    Zipfian unigrams plus local repeat structure (with probability 0.3
+    token t equals token t-4), so cross-entropy can fall well below
+    ln(V)."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    base = rng.choice(vocab, size=(n_seq, seq_len), p=probs).astype(np.int32)
+    mask = rng.rand(n_seq, seq_len) < 0.3
+    for t in range(4, seq_len):
+        base[:, t] = np.where(mask[:, t], base[:, t - 4], base[:, t])
+    return base
 
 
 def train_test_split(data: Dict[str, np.ndarray], test_frac: float = 0.1,

@@ -33,19 +33,32 @@ Personalization modes:
   fedper    — the last layer stays local
   local     — local-only baseline (no aggregation)
 
+Crash/resume: ``save_checkpoint`` writes the complete server state at a
+round boundary (the arrays, and in ``extra`` the round index, the numpy
+RNG state, the wire-byte totals and the history, as the reference
+writes them) through a ``repro_torch.checkpoint.CheckpointManager``;
+``restore_checkpoint`` reads it back without knowing its structure, and
+a restored server continues bitwise as the uninterrupted run would.
+``run(..., ckpt=...)`` checkpoints every ``ckpt_every`` rounds.
+Checkpoints are in the reference's format: either package reads the
+other's.
+
 Not ported yet, and refused at construction with the ROADMAP item that
 brings them: the async engine (A12), fleet traces, the arena store and
 chunked data (A10), codecs other than identity (A7), rank tiers,
-faults, defenses and round recovery (A11).
+faults, defenses and round recovery (A11). A checkpoint that holds
+their state raises on restore.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import unflatten_paths
 from repro_torch.data.loader import (client_epochs, client_step_count,
                                      stack_client_epochs)
 from repro_torch.device import DeviceLike, resolve_device
@@ -72,6 +85,37 @@ def _loss_stats(losses) -> tuple:
     fin = np.isfinite(arr)
     mean = float(arr[fin].mean()) if fin.any() else float("nan")
     return mean, int((~fin).sum())
+
+
+def _to_plain(obj):
+    """Numpy and torch scalars and arrays inside ``obj`` as plain Python
+    (lists, ints, floats), so the history serializes into a checkpoint
+    manifest."""
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_plain(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return _to_plain(obj.tolist())
+    if isinstance(obj, torch.Tensor):
+        return _to_plain(obj.detach().cpu().tolist())
+    return obj
+
+
+# checkpoint sections of state the port does not carry yet. The
+# reference's "stale_ref" (the last broadcast, read only by stale-replay
+# fault injection, ROADMAP A11, which the port refuses) is ignored.
+_UNPORTED_SECTIONS = {
+    "down_ref": "downlink codec state (ROADMAP A7)",
+    "down_ef": "downlink codec state (ROADMAP A7)",
+    "arena": "the arena store (ROADMAP A10)",
+    "async": "the async engine's buffer (ROADMAP A12)",
+    "client_versions": "the async engine's client versions (ROADMAP A12)",
+}
 
 
 @dataclass
@@ -205,6 +249,7 @@ class FLServer:
         self.client_states: Dict[int, Dict] = {}
         self.local_trees: Dict[int, Any] = {}   # personalization residents
         self.history: List[Dict] = []
+        self.round_seconds: List[float] = []   # host wall time per round
         self.uplink_codec = codecs.make_codec(
             server_cfg.uplink_codec or server_cfg.uplink_quant)
         self.downlink_codec = codecs.make_codec(
@@ -357,7 +402,16 @@ class FLServer:
     def run_round(self) -> Dict:
         """Execute one federated round end to end (selection, broadcast,
         the configured engine, bookkeeping) and return (and append to
-        ``history``) its record."""
+        ``history``) its record. Its host wall time, synchronized with
+        the card, goes to ``round_seconds`` (not checkpointed)."""
+        t0 = time.perf_counter()
+        rec = self._round()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.round_seconds.append(time.perf_counter() - t0)
+        return rec
+
+    def _round(self) -> Dict:
         sampled, mask, seeds, lr, probe, lat = self._select_round()
         if not mask.any():   # everyone failed: skip round (fault tolerance)
             self.round_idx += 1
@@ -571,15 +625,95 @@ class FLServer:
                                   down_bytes, down_dec, lr, chunks=n_chunks,
                                   client_chunk=chunk)
 
-    def run(self, rounds: Optional[int] = None,
-            log_every: int = 0) -> List[Dict]:
+    # --------------------------------------------------- crash / resume
+    def _checkpoint_tree(self) -> Dict:
+        """Every array-valued piece of server state as one dict tree
+        (client dicts keyed by stringified cid, so the checkpoint's paths
+        restore them without a target structure)."""
+        tree: Dict[str, Any] = {"global_params": self.global_params,
+                                "server_state": self.server_state}
+        if self.client_states:
+            tree["client_states"] = {str(c): s for c, s
+                                     in self.client_states.items()}
+        if self.local_trees:
+            tree["local_trees"] = {str(c): t for c, t
+                                   in self.local_trees.items()}
+        return tree
+
+    def save_checkpoint(self, manager) -> str:
+        """Checkpoint the complete server state at a round boundary
+        (arrays, and the round index, legacy RNG stream, wire-byte totals
+        and history in ``extra``) through ``manager``, a
+        ``repro_torch.checkpoint.CheckpointManager``; returns the step's
+        directory. Restoring it continues the run bitwise."""
+        st = self.rng.get_state()
+        extra = {
+            "round_idx": int(self.round_idx),
+            "rng": [st[0], [int(v) for v in st[1]], int(st[2]),
+                    int(st[3]), float(st[4])],
+            "comm": [int(self.comm_log.down_bytes),
+                     int(self.comm_log.up_bytes),
+                     int(self.comm_log.rounds)],
+            "history": _to_plain(self.history),
+        }
+        return manager.save(self.round_idx, self._checkpoint_tree(),
+                            extra=extra)
+
+    def restore_checkpoint(self, manager, step: Optional[int] = None) -> int:
+        """Restore from ``manager`` (the latest step by default) onto the
+        run's device and return the restored round index. Structure-free:
+        the checkpoint's "/"-joined paths rebuild the nested dicts, so
+        per-client state restores without knowing who participated.
+        Reads the reference's checkpoints too; one that holds state the
+        port does not carry yet (codec references, the arena, the async
+        buffer) raises ``NotImplementedError`` naming its ROADMAP item."""
+        by_path, extra, step = manager.restore_items(step)
+        root = tree_to(unflatten_paths(by_path, listify=False), self.device)
+        for section in _UNPORTED_SECTIONS:
+            if section in root or section in extra:
+                raise NotImplementedError(
+                    f"checkpoint section {section!r}: "
+                    f"{_UNPORTED_SECTIONS[section]} is not ported yet")
+        self.global_params = root["global_params"]
+        self.server_state = root.get("server_state", {})
+        self.client_states = {int(c): s for c, s
+                              in root.get("client_states", {}).items()}
+        self.local_trees = {int(c): t for c, t
+                            in root.get("local_trees", {}).items()}
+        self.round_idx = int(extra["round_idx"])
+        r = extra["rng"]
+        self.rng.set_state((r[0], np.asarray(r[1], np.uint32), int(r[2]),
+                            int(r[3]), float(r[4])))
+        (self.comm_log.down_bytes, self.comm_log.up_bytes,
+         self.comm_log.rounds) = (int(v) for v in extra["comm"])
+        self.history = list(extra["history"])
+        return step
+
+    def run(self, rounds: Optional[int] = None, log_every: int = 0,
+            ckpt: Optional[Any] = None, ckpt_every: int = 1) -> List[Dict]:
         """Run ``rounds`` federated rounds (default
-        ``ServerConfig.rounds``) and return the full ``history``."""
+        ``ServerConfig.rounds``) and return the full ``history``.
+
+        With ``ckpt`` (a ``repro_torch.checkpoint.CheckpointManager``),
+        ``rounds`` is the TOTAL round target: a server restored through
+        :meth:`restore_checkpoint` runs only the remaining rounds, and
+        the state is checkpointed every ``ckpt_every`` completed rounds
+        and at the end."""
         target = rounds or self.scfg.rounds
-        for r in range(target):
+        if ckpt is None:
+            for r in range(target):
+                rec = self.run_round()
+                if log_every and (r % log_every == 0):
+                    print(rec)
+            return self.history
+        while self.round_idx < target:
             rec = self.run_round()
-            if log_every and (r % log_every == 0):
+            if log_every and ((self.round_idx - 1) % log_every == 0):
                 print(rec)
+            if (self.round_idx % ckpt_every == 0
+                    or self.round_idx >= target):
+                self.save_checkpoint(ckpt)
+        ckpt.wait()
         return self.history
 
     # --------------------------------------------- personalization eval

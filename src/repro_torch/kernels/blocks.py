@@ -13,7 +13,10 @@ tile code ``csrc/tiles.cuh``, which picks it at each launch:
 * ``Skinny`` (rows <= 32, decode): up to 32 rows, steps of 128, split
   over the block's 8 warps;
 * the rank-r compose walks rank chunks of 32 (``RC``);
-* grid = (ceil(n / 32), ceil(rows / max rows), users).
+* grid = (ceil(n / 32), ceil(rows / max rows), users);
+* the compose kernels (K5/K6, ``csrc/fedpara_compose.cu``) have no
+  activation rows: a block composes a (128 x 32) tile of W, the Skinny
+  shape's step, on grid (ceil(n / 32), ceil(m / 128), layers).
 
 This module holds no code: the wrappers pass shapes, and the C entry
 points choose the block shape, grid and shared memory.

@@ -25,7 +25,8 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("serve_matmul", "fedpara_matmul", "fedpara_grad", "agg")
+SOURCES = ("serve_matmul", "fedpara_matmul", "fedpara_grad", "agg",
+           "fedpara_compose")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

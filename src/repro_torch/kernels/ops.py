@@ -13,7 +13,9 @@ path went through the kernels (:func:`reset_launches` /
 :func:`launches`). The client-stacked calls of the batched FL engine
 (x (C, B, m), factors (C, ·, r)) count under their own entries
 (``*_clients``), apart from the 2-D calls of the sequential engine and
-of serving, so a run shows which path it took.
+of serving, so a run shows which path it took; likewise the compose
+of a layer-stacked node (K6, factors (L, ·, r)) counts under
+``fedpara_compose_stacked``, apart from the 2-D compose (K5).
 
 The fused matmul trains through ``kernels.fedpara_grad.FedParaMatmul``
 (K1/K2 forward, K3/K4 backward). The serve-only kernels (K8, K10) have
@@ -27,13 +29,15 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import agg as _agg
+from repro_torch.kernels import fedpara_compose as _fc
 from repro_torch.kernels import fedpara_grad as _fg
 from repro_torch.kernels import fedpara_matmul as _fm
 from repro_torch.kernels import ref, serve_matmul
 
 KERNELS = ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors", "w8_matmul",
            "cache_residual_matmul", "fedpara_matmul_clients",
-           "fedpara_dx_clients", "fedpara_dfactors_clients", "dequant_acc")
+           "fedpara_dx_clients", "fedpara_dfactors_clients", "dequant_acc",
+           "fedpara_compose", "fedpara_compose_stacked")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -152,6 +156,22 @@ def dequant_acc(acc, q, coeff) -> torch.Tensor:
     _agg.dequant_acc(acc, q, coeff)
     LAUNCHES["dequant_acc"] += 1
     return acc
+
+
+def fedpara_compose(x1, y1, x2, y2, *, kind=None,
+                    out_dtype=None) -> torch.Tensor:
+    """W = f1(X1Y1ᵀ) ⊙ f2(X2Y2ᵀ) in ``out_dtype`` (default x1's): (m, n)
+    from (m, r) / (n, r) factors, K5 on the card; (L, m, n) from a
+    stacked node's (L, m, r) / (L, n, r), K6, one launch. The sums are
+    fp32 and each element is rounded once, at its store."""
+    kind = resolve_kind(kind)
+    if not _serve_only(x1, "fedpara_compose", y1, x2, y2):
+        return ref.fedpara_compose_ref(x1, y1, x2, y2, kind=kind,
+                                       out_dtype=out_dtype)
+    w = _fc.fedpara_compose(x1, y1, x2, y2, kind=kind,
+                            out_dtype=out_dtype or x1.dtype)
+    LAUNCHES["fedpara_compose" + ("_stacked" if x1.ndim == 3 else "")] += 1
+    return w
 
 
 def w8_matmul(x, w, scale=None, *, out_dtype=None) -> torch.Tensor:

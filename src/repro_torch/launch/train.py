@@ -20,6 +20,11 @@ round's, plus ``comm_up_mb`` / ``comm_down_mb``).
   ``--device cpu`` to run the plain PyTorch versions on the host.
 * ``--use-kernels`` trains through the fused differentiable matmul (K1
   forward, K3/K4 backward; the reference's ``--use-pallas``).
+* ``--ckpt-dir D`` checkpoints the server every ``--ckpt-every``
+  rounds and at the end (the reference's format, the two latest steps
+  kept); ``--resume`` restores the latest step in ``D`` first, prints
+  ``resumed at round K`` and runs on to ``--rounds``: the final record
+  is the uninterrupted run's, bit for bit.
 * ``--init-params <npz>`` starts from a tree written with
   ``repro_torch.interop.save_npz`` (e.g. the reference's
   ``jax.random``-initialized MLP), so a port run can match a reference
@@ -37,12 +42,11 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import time
 from typing import Any, Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ParamCfg
 from repro_torch.data import dirichlet_partition, make_image_dataset, train_test_split
 from repro_torch.device import resolve_device
@@ -68,11 +72,6 @@ def _mlp_loss(cfg, p, b):
 
 def _mlp_loss_clients(cfg, p, b):
     return rec.mlp_loss_clients(p, cfg, b)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def build_fl(args: argparse.Namespace) -> FLServer:
@@ -158,6 +157,14 @@ def parser() -> argparse.ArgumentParser:
                     help="start from this .npz tree (interop.save_npz)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint the server into this directory")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="rounds between checkpoints (and one at the end)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint in --ckpt-dir and "
+                         "continue to --rounds (bitwise identical to the "
+                         "uninterrupted run)")
     return ap
 
 
@@ -170,17 +177,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         raise SystemExit("--mode pods (the transformer pod trainer) is not "
                          "ported yet: ROADMAP A14/A15")
     srv = build_fl(args)
-    seconds = []
-    for _ in range(args.rounds):
-        t0 = time.perf_counter()
-        rec_ = srv.run_round()
-        _sync(srv.device)
-        seconds.append(time.perf_counter() - t0)
-        print(rec_, flush=True)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    if args.resume:
+        if ckpt is None:
+            raise SystemExit("--resume requires --ckpt-dir")
+        if ckpt.latest_step() is not None:
+            step = srv.restore_checkpoint(ckpt)
+            print(f"resumed at round {step}", flush=True)
+    srv.run(args.rounds, log_every=1, ckpt=ckpt,
+            ckpt_every=max(1, args.ckpt_every))
     record = final_record(srv)
     print(json.dumps(record, indent=1), flush=True)
     return {"record": record, "server": srv,
-            "round_seconds": np.asarray(seconds).tolist()}
+            "round_seconds": list(srv.round_seconds)}
 
 
 if __name__ == "__main__":

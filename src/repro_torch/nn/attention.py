@@ -1,4 +1,5 @@
-"""GQA attention (PyTorch): chunked prefill and single-token decode.
+"""GQA attention (PyTorch): full-sequence (training) attention, chunked
+prefill and single-token decode.
 
 Mirrors the reference's ``nn/attention.py`` math for the features the
 served archs use: grouped-query attention, rotary embeddings (full /
@@ -89,6 +90,20 @@ def _chunked_attend(q, k, v, cfg: ArchConfig, *, window: int, chunk: int):
         s = torch.where(m[None, None, None], s, NEG_INF)
         outs.append(_gqa_out(torch.softmax(s, dim=-1), v))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+def full_attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                   window: int, chunk: int = 512, dtype=torch.bfloat16,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """Full-sequence causal self-attention (the training forward): x
+    (B, S, d) -> (B, S, d), one query chunk at a time, as the
+    reference's ``full_attention`` scans its chunks. Differentiable; the
+    projections go through :func:`dense`."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, pos, dtype, use_kernels)
+    y = _chunked_attend(q, k, v, cfg, window=window, chunk=chunk)
+    return dense(p["wo"], y.reshape(B, S, -1), cfg.param, dtype, use_kernels)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, n_sites: int,

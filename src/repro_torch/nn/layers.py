@@ -176,6 +176,40 @@ def _serve_personalized(sub, x, dtype, use_kernels: bool) -> torch.Tensor:
     return y.reshape(*lead, y.shape[-1])
 
 
+def precompose_tree(params, pcfg: ParamCfg, dtype=torch.bfloat16,
+                    int8: bool = False):
+    """Replace every weight subtree with ``{'w': dense}`` (serving), as
+    the reference's ``precompose_tree`` does.
+
+    A FedPara factor node is composed by ``ops.fedpara_compose`` in
+    ``dtype`` (K5 on the card; K6 for a layer-stacked node, one launch).
+    ``int8=True`` then quantizes composed weights to int8 with
+    per-output-channel scales (``{'w_q', 'scale'}``), embeddings
+    excepted."""
+    kind = pcfg.kind if pcfg.kind in FUSED_KINDS else "fedpara"
+
+    def is_param_leafdict(d):
+        return isinstance(d, dict) and any(
+            k in d for k in ("w", "x", "x1", "t", "t1"))
+
+    def walk(node, name=""):
+        if is_param_leafdict(node):
+            if "x1" in node and "x2" in node:
+                w = ops.fedpara_compose(node["x1"], node["y1"], node["x2"],
+                                        node["y2"], kind=kind,
+                                        out_dtype=dtype)
+            else:
+                w = materialize_auto(node, pcfg.kind, dtype)
+            if int8 and name not in ("embed", "unembed"):
+                return quantize_int8(w)
+            return {"w": w}
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
 # -------------------------------------------------------------------- norms
 
 def init_scale(n: int, device="cpu") -> Dict[str, torch.Tensor]:

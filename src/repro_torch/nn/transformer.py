@@ -1,7 +1,9 @@
-"""Decoder-only LM (PyTorch) for serving: the dense family.
+"""Decoder-only LM (PyTorch): the dense family.
 
-A port of the reference's ``nn/transformer.py::DecoderLM`` serving path
-(``init_params``, ``init_cache``, ``prefill``, ``decode_step``). Layer
+A port of the reference's ``nn/transformer.py::DecoderLM``: the
+training forward (``hidden_states``, ``loss`` through
+:func:`chunked_ce_loss`), the serving path (``init_params``,
+``init_cache``, ``prefill``, ``decode_step``) and ``precompose``. Layer
 parameters are stacked along a leading layer axis exactly as the
 reference's ``jax.vmap(init_layer)`` stacks them, so trees carry across
 unchanged (``repro_torch.interop``); the forward walks the layers with
@@ -17,13 +19,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as attn
-from repro_torch.nn.layers import act_fn, dense, init_dense, init_scale, rms_norm
+from repro_torch.nn.layers import (act_fn, dense, init_dense, init_scale,
+                                   precompose_tree, rms_norm)
 from repro_torch.tree import tree_index
 
 
 @dataclass(frozen=True)
 class ModelOptions:
-    attn_chunk: int = 512          # query-chunk size of prefill attention
+    attn_chunk: int = 512          # query-chunk size of full attention
+    logit_chunk: int = 1024        # sequence chunk of the training loss
     use_kernels: bool = True       # serve kernels via repro_torch.kernels.ops
                                    # (False: the plain materialize path)
     dtype: Any = torch.bfloat16
@@ -70,6 +74,29 @@ def _stack_into(out: Optional[Dict], layer: Dict, i: int, n: int) -> Dict:
                           device=layer.device)
     out[i].copy_(layer)
     return out
+
+
+# ----------------------------------------------------------- loss utilities
+
+def chunked_ce_loss(h: torch.Tensor, unembed_w: torch.Tensor,
+                    targets: torch.Tensor, mask: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """Masked mean next-token cross-entropy, unembedding ``chunk``
+    positions at a time (bounds the fp32 logit buffer to (B, chunk, V));
+    h (B, S, d), targets and mask (B, S)."""
+    S = h.shape[1]
+    C = min(chunk, S)
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, C):
+        logits = torch.matmul(h[:, c0:c0 + C], unembed_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           targets[:, c0:c0 + C, None].long())[..., 0]
+        mi = mask[:, c0:c0 + C].float()
+        tot = tot + ((lse - tgt) * mi).sum()
+        cnt = cnt + mi.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 # ============================================================ decoder-only LM
@@ -123,6 +150,40 @@ class DecoderLM:
         if self.cfg.tie_embeddings:
             return params["embed"]["w"].to(dtype).T
         return params["unembed"]["w"].to(dtype)
+
+    # ---------------- train forward
+    def hidden_states(self, params: Dict, tokens: torch.Tensor
+                      ) -> torch.Tensor:
+        """Final-norm hidden states (B, S, d) of tokens (B, S), causal
+        over the whole sequence (differentiable)."""
+        cfg, opts = self.cfg, self.opts
+        h = params["embed"]["w"][tokens].to(opts.dtype)
+        for i, window in enumerate(self.layer_windows()):
+            def attend(pa, x, window=window):
+                return attn.full_attention(
+                    pa, x, cfg, window=window, chunk=opts.attn_chunk,
+                    dtype=opts.dtype, use_kernels=opts.use_kernels)
+
+            h = self._block(h, tree_index(params["layers"], i), cfg, attend)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S):
+        a plain function of the params dict, the ``loss_fn`` an
+        ``FLServer`` trains through."""
+        tokens = batch["tokens"]
+        h = self.hidden_states(params, tokens[:, :-1])
+        targets = tokens[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        return chunked_ce_loss(h, self.unembed_w(params, self.opts.dtype),
+                               targets, mask, self.opts.logit_chunk)
+
+    def precompose(self, params: Dict, int8: bool = False) -> Dict:
+        """Every weight composed to ``{'w'}`` in the model's dtype (or int8
+        ``{'w_q', 'scale'}``): :func:`precompose_tree`."""
+        return precompose_tree(params, self.cfg.param, self.opts.dtype,
+                               int8=int8)
 
     # ---------------- serving
     def init_cache(self, batch: int, max_seq: int, device="cpu") -> Dict:

@@ -15,10 +15,16 @@ precompose
     composed — ``{'w1_q'|'w1', 'scale'}`` — and the per-user residual
     is applied inside the cache+residual kernel at serve time.
 
-Composition runs ONE LAYER AT A TIME: a layer-stacked (L, m, r) node is
-composed per layer into preallocated (L, m, n) caches, so the dense fp32
-W of only one layer exists at once (composing qwen3-8b's whole tree in
-fp32 at once would take about 28 GB).
+W is composed by ``ops.fedpara_compose``: on the card the compose
+kernels, K5 for one (m, n) weight and K6 for a layer-stacked node in one
+launch. The fp16 cache of a stacked (L, m, r) node is K6's output
+itself, (L, m, n) fp16, with no fp32 W at all (the host's plain version
+composes the stack in fp32 and casts). The int8 cache is composed ONE
+LAYER AT A TIME: K5 writes one layer's fp32 W, which is quantized into
+preallocated (L, m, n) codes, so the dense fp32 W of only one layer
+exists at once (composing qwen3-8b's whole tree in fp32 at once would
+take about 28 GB). The pFedPara shared half W1 = X1·Y1ᵀ is a plain
+rank-r product (the reference's einsum), ``torch.matmul``.
 
 Embeddings/unembed stay in their native dtype.
 """
@@ -28,7 +34,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.nn.layers import materialize_auto, quantize_int8
+from repro_torch.kernels import ops
+from repro_torch.nn.layers import FUSED_KINDS, quantize_int8
 from repro_torch.serve.cost_model import LayerDecision
 from repro_torch.tree import tree_bytes
 
@@ -76,11 +83,17 @@ def build_serve_params(params: Any, kind: str,
             return {"w1_q": q["w_q"], "scale": q["scale"]}
         return {"w1": w1.half()}
 
+    fkind = kind if kind in FUSED_KINDS else "fedpara"
+
+    def compose(node, dtype):
+        return ops.fedpara_compose(node["x1"], node["y1"], node["x2"],
+                                   node["y2"], kind=fkind, out_dtype=dtype)
+
     def compose_w(node, name):
-        w = materialize_auto(node, kind, torch.float32)
         if cache_dtype == "int8" and name not in _NO_QUANT:
-            return quantize_int8(w)
-        return {"w": w.half()}
+            return _per_layer(node, lambda nd: quantize_int8(
+                compose(nd, torch.float32)))
+        return {"w": compose(node, torch.float16)}
 
     def walk(node, path="", name=""):
         dec = plan.get(path)
@@ -89,7 +102,7 @@ def build_serve_params(params: Any, kind: str,
                 return dict(node)       # fused / dense: leave verbatim
             if _personalized(node, kind):
                 return _per_layer(node, compose_w1)
-            return _per_layer(node, lambda nd: compose_w(nd, name))
+            return compose_w(node, name)
         if isinstance(node, dict):
             return {k: walk(v, f"{path}/{k}" if path else str(k), k)
                     for k, v in node.items()}

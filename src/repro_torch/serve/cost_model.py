@@ -159,7 +159,7 @@ def measure_modes(m: int, n: int, r: int, batch: int, *,
                   device="cuda") -> Dict[str, float]:
     """Measured µs per mode on the card: the exact single-layer op each
     serving mode would run, on random factors, median of ``reps``."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.nn.layers import quantize_int8
 
     dev = torch.device(device)
@@ -192,8 +192,8 @@ def measure_modes(m: int, n: int, r: int, batch: int, *,
         return out
 
     xs = rnd(batch, m).to(dtype)
-    wd = ref.fedpara_compose_ref(x1, y1, x2, y2, kind=kind,
-                                 out_dtype=torch.float32)
+    wd = ops.fedpara_compose(x1, y1, x2, y2, kind=kind,
+                             out_dtype=torch.float32)
     node = quantize_int8(wd) if weight_dtype == "int8" else {"w": wd.half()}
     w, s = node.get("w_q", node.get("w")), node.get("scale")
     out["precompose"] = _median_time_us(lambda: ops.w8_matmul(xs, w, s), reps)

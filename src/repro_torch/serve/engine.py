@@ -1,10 +1,14 @@
-"""The serve engine (PyTorch): params -> per-layer plan -> cache -> decode.
+"""The serve engine (PyTorch): checkpoint -> per-layer plan -> cache ->
+decode.
 
 ``ServeEngine`` glues the serving stack together, as the reference's
 ``repro.serve.ServeEngine`` does:
 
 1. **Params** — a trained global tree (factor nodes intact, layers
-   stacked) plus, for pFedPara, each user's personal half.
+   stacked) plus, for pFedPara, each user's personal half; or, through
+   :meth:`ServeEngine.from_checkpoint` and :func:`load_fl_checkpoint`,
+   both read from an FL training checkpoint (the port's or the
+   reference's; ``repro_torch.checkpoint``) without a target structure.
 2. **Plan** — ``cost_model.plan_params`` decides precompose-vs-fused per
    layer (analytic roofline, or measured on the card; ``mode`` forces
    either branch).
@@ -15,17 +19,18 @@
    place.
 
 Every projection goes through ``repro_torch.kernels.ops``: on the card
-the hand-written kernels (K8 for int8/fp16 caches, K1 for fused
-prefill, K10 for many-user pFedPara), on the host their plain versions.
-Loading FL checkpoints waits for the training slice.
+the hand-written kernels (K5/K6 compose the precomposed caches, K8
+reads them, K1 for fused prefill, K10 for many-user pFedPara), on the
+host their plain versions.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, unflatten_paths
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl import comm
@@ -34,6 +39,30 @@ from repro_torch.serve import cost_model
 from repro_torch.serve.cache import build_serve_params, serve_state_bytes
 from repro_torch.serve.user_arena import UserArena, inject_users
 from repro_torch.tree import tree_to
+
+
+def load_fl_checkpoint(path: str, step: Optional[int] = None,
+                       device: DeviceLike = None
+                       ) -> Tuple[Any, Dict[int, Any], Dict, int]:
+    """Restore an FL training checkpoint for serving, onto ``device``
+    (``cuda`` by default; raises without a card).
+
+    Returns ``(global_params, local_trees, extra, step)``:
+    ``global_params`` is the trained model (pFedPara: the global tree,
+    whose x2/y2 are the initial personal half), ``local_trees`` maps
+    client id -> personal tree (empty for a run without
+    personalization). Client ids are discovered from the checkpoint's
+    paths: no target structure is needed."""
+    dev = resolve_device(device)
+    by_path, extra, step = CheckpointManager(path).restore_items(step)
+    global_params = unflatten_paths(by_path, prefix="global_params")
+    if not global_params:
+        raise ValueError(f"checkpoint at {path} has no global_params")
+    cids = sorted({p.split("/")[1] for p in by_path
+                   if p.startswith("local_trees/")}, key=int)
+    local_trees = {int(c): tree_to(unflatten_paths(
+        by_path, prefix=f"local_trees/{c}"), dev) for c in cids}
+    return tree_to(global_params, dev), local_trees, extra, step
 
 
 class ServeEngine:
@@ -93,6 +122,17 @@ class ServeEngine:
         base = opts or ModelOptions(attn_chunk=64)
         self.opts = dataclasses.replace(base, use_kernels=True)
         self.model = build_model(self.cfg, self.opts)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: ArchConfig, *,
+                        step: Optional[int] = None, **kw) -> "ServeEngine":
+        """An engine straight from an FL training checkpoint directory:
+        its global params and, for pFedPara, every client's personal
+        tree as a resident user (keyword args go to the constructor,
+        ``device`` included)."""
+        global_params, local_trees, _extra, _step = load_fl_checkpoint(
+            path, step, kw.get("device"))
+        return cls(cfg, global_params, local_trees or None, **kw)
 
     # -------------------------------------------------------------- compute
     def _params_for(self, user_ids: Optional[Sequence[Any]], batch: int):

@@ -230,7 +230,11 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "new = {'repro_torch.kernels.agg', 'repro_torch.fl.batch_engine', "
-        "'repro_torch.fl.stream_engine'}\n"
+        "'repro_torch.fl.stream_engine', 'repro_torch.checkpoint', "
+        "'repro_torch.checkpoint.manager', 'repro_torch.checkpoint.manifest', "
+        "'repro_torch.kernels.fedpara_compose'}\n"
+        "bad += sorted(k for k in sys.modules if k == 'msgpack' or "
+        "k.startswith('msgpack.'))\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or len(mods) < 20 or not new <= set(mods) "
         "else 0)\n")
@@ -256,6 +260,18 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         ServeEngine(cfg, params, mode="precompose")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--layers", "2"])
+    # the checkpoint -> serve slice's entry points
+    from repro_torch.serve import load_fl_checkpoint
+
+    for argv in (["--ckpt", "no-such-dir"], ["--smoke"], []):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine.from_checkpoint("no-such-dir", cfg, mode="precompose")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_fl_checkpoint("no-such-dir")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.tiny_fl_checkpoint("no-such-dir", rounds=1, clients=2)
     # the training slice's entry points
     from repro_torch.fl.client import ClientConfig
     from repro_torch.fl.server import FLServer, ServerConfig
@@ -269,7 +285,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                      ServerConfig(engine=engine))
     for engine in ([], ["--engine", "batched"],
                    ["--engine", "streaming", "--client-chunk", "3"],
-                   ["--engine", "sequential"]):
+                   ["--engine", "sequential"],
+                   ["--ckpt-dir", "no-such-dir", "--resume"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--mode", "fl", "--model", "mlp", "--rounds", "1",
                         *engine])

@@ -160,5 +160,9 @@ def test_serve_cli_round_trips_npz_params(tmp_path, capsys):
     args = ["--reduced", "--device", "cpu", "--layers", "2", "--prompt-len",
             "4", "--gen-len", "2", "--mode", "fused", "--seed", "3"]
     a = serve.main(args + ["--params", path])
-    b = serve.main(args)
+    # the same tree served in memory, on the prompts the CLI draws
+    prompts = np.random.default_rng(3 + 1).integers(
+        0, pcfg.vocab_size, size=(2, 4))
+    eng = ServeEngine(pcfg, params, mode="fused", batch=2, device="cpu")
+    b = serve.serve_timed(eng, torch.from_numpy(prompts), 2)
     np.testing.assert_array_equal(a["tokens"].numpy(), b["tokens"].numpy())
