@@ -122,6 +122,9 @@ SOURCES = {"fedpara_matmul": "src/repro_torch/csrc/fedpara_matmul.cu",
            "fedpara_compose": "src/repro_torch/csrc/fedpara_compose.cu",
            "fedpara_compose_stacked":
                "src/repro_torch/csrc/fedpara_compose.cu"}
+# an fp32-accurate product on the tensor cores takes three TF32 passes
+# (3xTF32: hi·hi + hi·lo + lo·hi, csrc/mma.cuh)
+TF32_PASSES = 3
 STACK_LAYERS = (2, 4)              # K6: layer-stacked nodes (2 timed)
 MAIN_STACK = 36                    # K6 at phase 4's depth (fp16, timed)
 
@@ -167,17 +170,23 @@ class Clock:
         return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def bound_ms(nbytes: float, flops_bf16: float = 0.0,
-             flops_fp32: float = 0.0) -> tuple:
+def bound_ms(nbytes: float, flops_bf16: float = 0.0, f32: float = 0.0,
+             elem: float = 0.0) -> tuple:
     """(ms, bound_by): the larger of bytes over the HBM rate and the
     operations over the peak rate of their type (the H100 data-sheet
-    constants the port's cost model uses)."""
+    constants the port's cost model uses): bf16 products at the bf16
+    tensor-core rate; fp32 matrix products (``f32``: rank-r composes,
+    the Gram route, fp32 contractions) at the 3xTF32 rate, the cheapest
+    way to them at fp32 accuracy; elementwise fp32 work (``elem``) at
+    the CUDA cores' fp32 rate."""
     from repro_torch.serve.cost_model import (H100_BF16_TFLOPS,
-                                              H100_FP32_TFLOPS, H100_HBM_GBPS)
+                                              H100_FP32_TFLOPS, H100_HBM_GBPS,
+                                              H100_TF32_TFLOPS)
 
     t_bytes = nbytes / (H100_HBM_GBPS * 1e9)
     t_ops = (flops_bf16 / (H100_BF16_TFLOPS * 1e12)
-             + flops_fp32 / (H100_FP32_TFLOPS * 1e12))
+             + f32 / (H100_TF32_TFLOPS / TF32_PASSES * 1e12)
+             + elem / (H100_FP32_TFLOPS * 1e12))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -222,6 +231,22 @@ def dfactors_ops(rows: int, m: int, n: int, r: int, x_bits: int = 16) -> dict:
 
 # ------------------------------------------------------------ phase 1
 
+def ptxas_entries(log: str) -> list:
+    """One dict per kernel of an ``nvcc -Xptxas -v`` log: the entry
+    function (mangled), its registers, stack frame and spill bytes."""
+    out = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            out.append({"function": ln.split("'")[1]})
+        elif out and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[-1].update(stack=nums[0], spill_stores=nums[1],
+                           spill_loads=nums[2])
+        elif out and "Used" in ln and "registers" in ln:
+            out[-1]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -231,10 +256,11 @@ def phase_build():
     ptxas = sorted({ln.strip() for info in built.values()
                     for ln in str(info["log"]).splitlines()
                     if "registers" in ln or "spill" in ln})
+    fused = ptxas_entries(str(built.get("fedpara_matmul", {}).get("log", "")))
     for name in build.SOURCES:
         build.library(name)
     say("build", seconds=round(secs, 3), built=sorted(built),
-        ptxas=ptxas[:40])
+        ptxas=ptxas[:40], fedpara_matmul_ptxas=fused)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -242,7 +268,8 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi: " + smi.stderr.strip()
     print(card, flush=True)
-    return card, {"seconds": secs, "built": sorted(built), "ptxas": ptxas}
+    return card, {"seconds": secs, "built": sorted(built), "ptxas": ptxas,
+                  "fedpara_matmul_ptxas": fused}
 
 
 # ------------------------------------------------------------ phase 2
@@ -266,7 +293,7 @@ def phase_kernels(clock: Clock, quick: bool):
     cases = {k: [] for k in ops.KERNELS}
 
     def record(kernel, name, fn, plain, lib, tol, nbytes, f16=0.0, f32=0.0,
-               timed=True):
+               timed=True, elem=0.0):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):   # K4 returns one tensor per factor
@@ -279,7 +306,7 @@ def phase_kernels(clock: Clock, quick: bool):
                "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                   for g, w in zip(got, want)),
                "tol": tol}
-        b, by = bound_ms(nbytes, f16, f32)
+        b, by = bound_ms(nbytes, f16, f32, elem)
         row.update(bound_ms=b, bound_by=by)
         if timed and not quick:
             row.update(ms=clock(fn), plain_ms=clock(plain, 3),
@@ -674,7 +701,7 @@ def _agg_cases(record, gen, quick):
                    lambda q=q: ref.dequant_acc_ref(acc0, q, coeff),
                    (lambda qf=qf: torch.addmv(acc0, qf.T, coeff))
                    if qf is not None else None,
-                   1e-5, (q.element_size() * C + 8) * L, f32=2.0 * C * L,
+                   1e-5, (q.element_size() * C + 8) * L, elem=2.0 * C * L,
                    timed=label == "layer")
             del work, qf
         torch.cuda.empty_cache()
@@ -1295,6 +1322,7 @@ def phase_checkpoint_serve(card: str, measurements):
     for u in srv.local_trees:
         _equal_trees(srv.local_trees[u], fresh.local_trees[u],
                      f"fresh server user {u}")
+    _equal_trees(srv._stale_ref, fresh._stale_ref, "fresh server stale_ref")
     ra, rb = fresh.rng.get_state(), srv.rng.get_state()
     check(fresh.history == srv.history and fresh.round_idx == 1
           and fresh.comm_log.up_bytes == srv.comm_log.up_bytes

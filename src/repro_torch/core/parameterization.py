@@ -104,12 +104,21 @@ def resolve_rank(m: int, n: int, gamma: float, rank: Optional[int]) -> int:
     return rank_policy.matrix_rank_for_gamma(m, n, gamma)
 
 
+def _refuse_lowrank(kind: str) -> None:
+    """The reference's low-rank kind is not ported yet: refuse it by its
+    ROADMAP item, as every other unported setting is refused."""
+    if kind == "lowrank":
+        raise NotImplementedError("parameterization kind 'lowrank' is not "
+                                  "ported yet: ROADMAP A2")
+
+
 def init_linear(gen: torch.Generator, m: int, n: int, *,
                 kind: str = "fedpara", gamma: float = 0.1,
                 rank: Optional[int] = None, device="cpu") -> ParamTree:
     """Initialize one parameterized (m -> n) weight."""
     if kind == "original":
         return init_original(gen, m, n, device)
+    _refuse_lowrank(kind)
     r = resolve_rank(m, n, gamma, rank)
     if kind in ("fedpara", "fedpara_tanh"):
         return init_fedpara(gen, m, n, r, device)
@@ -128,6 +137,7 @@ def materialize(params: ParamTree, kind: str, dtype=None) -> torch.Tensor:
         return compose_fedpara(params, dtype, use_tanh=True)
     if kind == "pfedpara":
         return compose_pfedpara(params, dtype)
+    _refuse_lowrank(kind)
     raise ValueError(f"unknown parameterization kind: {kind}")
 
 

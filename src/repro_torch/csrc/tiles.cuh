@@ -5,15 +5,15 @@
 // what does live there (an int8/fp16 cache, rank-r factors, or both),
 // cast to the activation dtype, and contracted at once. The kernels
 // differ only in how a (BK x BN) tile of W' is built, so one driver,
-// `tiled_matmul`, takes a tile builder (see serve_matmul.cu and
-// fedpara_matmul.cu):
+// `tiled_matmul`, takes a tile builder (see serve_matmul.cu):
 //
 //   * W8Tile      — widen an int8 or fp16 cache tile (K8);
-//   * ResidTile   — cache tile ⊙ (X2ᵤY2ᵤᵀ + 1) for one user (K9/K10);
-//   * FedParaTile — f1(X1Y1ᵀ) ⊙ f2(X2Y2ᵀ) (K1).
+//   * ResidTile   — cache tile ⊙ (X2ᵤY2ᵤᵀ + 1) for one user (K9/K10).
 //
-// The compose kernels K5/K6 (fedpara_compose.cu) use the rank-r
-// `compose` below on its own, with the Skinny shape, and write W.
+// The compose kernels K5/K6 (fedpara_compose.cu) and the factor
+// gradients K4 (fedpara_grad.cu) use the rank-r `compose` below on its
+// own. The fused FedPara matmul (K1-K3, fedpara_matmul.cu) has its own
+// tensor-core kernel.
 //
 // A block (256 threads) owns BN = 32 output columns and a group of
 // activation rows, and walks the contraction axis m in steps of BK

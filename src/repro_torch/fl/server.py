@@ -106,9 +106,7 @@ def _to_plain(obj):
     return obj
 
 
-# checkpoint sections of state the port does not carry yet. The
-# reference's "stale_ref" (the last broadcast, read only by stale-replay
-# fault injection, ROADMAP A11, which the port refuses) is ignored.
+# checkpoint sections of state the port does not carry yet
 _UNPORTED_SECTIONS = {
     "down_ref": "downlink codec state (ROADMAP A7)",
     "down_ef": "downlink codec state (ROADMAP A7)",
@@ -249,6 +247,9 @@ class FLServer:
         self.client_states: Dict[int, Dict] = {}
         self.local_trees: Dict[int, Any] = {}   # personalization residents
         self.history: List[Dict] = []
+        # the last round's decoded broadcast, as the reference keeps it
+        # (what its stale-replay faults re-upload); checkpointed
+        self._stale_ref: Any = None
         self.round_seconds: List[float] = []   # host wall time per round
         self.uplink_codec = codecs.make_codec(
             server_cfg.uplink_codec or server_cfg.uplink_quant)
@@ -434,6 +435,8 @@ class FLServer:
         if self.eval_fn is not None:
             rec["eval"] = self.eval_fn(self.global_params)
         self.history.append(rec)
+        # no engine updates a tree in place, so a reference is enough
+        self._stale_ref = down_dec
         return rec
 
     # ------------------------------------------- sequential reference
@@ -632,6 +635,8 @@ class FLServer:
         restore them without a target structure)."""
         tree: Dict[str, Any] = {"global_params": self.global_params,
                                 "server_state": self.server_state}
+        if self._stale_ref is not None:
+            tree["stale_ref"] = self._stale_ref
         if self.client_states:
             tree["client_states"] = {str(c): s for c, s
                                      in self.client_states.items()}
@@ -676,6 +681,7 @@ class FLServer:
                     f"{_UNPORTED_SECTIONS[section]} is not ported yet")
         self.global_params = root["global_params"]
         self.server_state = root.get("server_state", {})
+        self._stale_ref = root.get("stale_ref")
         self.client_states = {int(c): s for c, s
                               in root.get("client_states", {}).items()}
         self.local_trees = {int(c): t for c, t

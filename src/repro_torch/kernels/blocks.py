@@ -2,8 +2,16 @@
 
 The TPU tile table (``repro/kernels/blocks.py``) sized VMEM tiles for a
 128x128 matrix unit and a sequential grid; none of it carries over.
-The Hopper kernels' launch configuration lives in one place, the shared
-tile code ``csrc/tiles.cuh``, which picks it at each launch:
+The Hopper kernels' launch configuration lives in their CUDA sources,
+which pick it at each launch. The fused FedPara matmul (K1, K2, K3 and
+K3 with a client axis, ``csrc/fedpara_matmul.cu``) runs on the tensor
+cores with its own tiles: 512 threads (8 compose warps, 8 contraction
+warps), 32 output columns and up to 512 (bf16) or 128 (fp32)
+activation rows per block, steps of 64 rows of m, rank chunks of 32 in
+a three-stage ring; grid = (ceil(n / 32), row blocks x splits of m,
+clients), the splits chosen by ``repro_fedpara_splits`` to fill the
+card. The other kernels share the
+tile code ``csrc/tiles.cuh``:
 
 * every block has 256 threads (``NT``) and owns 32 output columns
   (``BN``);

@@ -2,12 +2,15 @@
 ``csrc/fedpara_matmul.cu``.
 
 Computes y = x @ W with W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) without writing W
-to device memory: each (32 x 32) tile of W is composed in shared memory
-from factor slices, cast to the activation dtype and contracted at
-once. Replaces ``repro/kernels/fedpara_matmul.py:_kernel`` (K1) and,
-with a leading client axis (x (C, B, m), factors (C, m, r) / (C, n, r),
-the client on grid axis z), ``_kernel_batched`` (K2): one launch for all
-the clients of a batched FL step. The backward kernels (K3, which runs
+to device memory: each (32 x 64) tile of Wᵀ is composed on the tensor
+cores at fp32 accuracy (3xTF32), cast to the activation dtype in shared
+memory and contracted at once on the tensor cores. Replaces
+``repro/kernels/fedpara_matmul.py:_kernel`` (K1) and, with a leading
+client axis (x (C, B, m), factors (C, m, r) / (C, n, r), the client on
+grid axis z), ``_kernel_batched`` (K2): one launch for all the clients
+of a batched FL step. A launch too small to fill the card splits the
+contraction axis across blocks; the wrapper then allocates the fp32
+workspace of the partial sums. The backward kernels (K3, which runs
 this kernel on the transposed weight, and K4) are launched from
 ``kernels/fedpara_grad.py``.
 """
@@ -23,7 +26,19 @@ from repro_torch.kernels.serve_matmul import X_CODES, check_status
 KIND_CODES = {"fedpara": 0, "fedpara_tanh": 1, "pfedpara": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_SIGNATURES = {
+    "repro_fedpara_splits": [_I] * 7,
+    "repro_fedpara_matmul": [_P] * 7 + [_I] * 8 + [_P],
+    "repro_fedpara_dx": [_P] * 7 + [_I] * 8 + [_P],
+}
+
+
+def _cfn(symbol: str):
+    fn = getattr(build.library("fedpara_matmul"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check_operands(kind: str, act: torch.Tensor, want: tuple, factors,
@@ -53,18 +68,25 @@ def check_operands(kind: str, act: torch.Tensor, want: tuple, factors,
 def launch(symbol: str, act: torch.Tensor, factors, out: torch.Tensor,
            m: int, n: int, r: int, kind: str) -> None:
     """Call ``repro_fedpara_matmul`` / ``repro_fedpara_dx`` on a checked
-    (rows, m) or (C, rows, m) activation and write ``out``."""
-    fn = getattr(build.library("fedpara_matmul"), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = SIGNATURE
-        fn.restype = ctypes.c_int
+    (rows, m) or (C, rows, m) activation and write ``out``; allocates the
+    split-sum workspace when the launch splits its contraction axis."""
     clients = act.shape[0] if act.ndim == 3 else 1
+    rows = act.shape[-2]
+    # the contraction runs over m (forward) or n (dx, the transposed W)
+    k_len, width = (n, m) if symbol == "repro_fedpara_dx" else (m, n)
+    dev = act.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ac = act.contiguous()
-    with torch.cuda.device(act.device):
-        err = fn(ac.data_ptr(), *(a.data_ptr() for a in factors),
-                 out.data_ptr(), clients, act.shape[-2], m, n, r,
-                 KIND_CODES[kind], X_CODES[act.dtype],
-                 torch.cuda.current_stream(act.device).cuda_stream)
+    with torch.cuda.device(dev):
+        splits = _cfn("repro_fedpara_splits")(clients, rows, k_len, width, r,
+                                               X_CODES[act.dtype], sms)
+        ws = (torch.empty((splits, clients, rows, width), dtype=torch.float32,
+                          device=dev) if splits > 1 else None)
+        err = _cfn(symbol)(ac.data_ptr(), *(a.data_ptr() for a in factors),
+                           out.data_ptr(),
+                           ws.data_ptr() if ws is not None else None, clients,
+                           rows, m, n, r, KIND_CODES[kind], X_CODES[act.dtype],
+                           splits, torch.cuda.current_stream(dev).cuda_stream)
     check_status(err, symbol)
 
 

@@ -21,19 +21,70 @@ import torch
 KINDS = ("fedpara", "fedpara_tanh", "pfedpara")
 
 
-def fedpara_compose_ref(x1, y1, x2, y2, *, kind: str = "fedpara",
-                        out_dtype=None) -> torch.Tensor:
-    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ), computed densely in fp32; (m, n), or
-    (C, m, n) for client-stacked factors."""
+def _hadamard(w1, w2, kind: str) -> torch.Tensor:
+    """f1(W1) ⊙ f2(W2) for the paper variant ``kind``."""
     if kind not in KINDS:
         raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
-    w1 = x1.float() @ y1.float().mT
-    w2 = x2.float() @ y2.float().mT
     if kind == "fedpara_tanh":
         w1, w2 = torch.tanh(w1), torch.tanh(w2)
     if kind == "pfedpara":
         w2 = w2 + 1.0
-    return (w1 * w2).to(out_dtype or x1.dtype)
+    return w1 * w2
+
+
+def fedpara_compose_ref(x1, y1, x2, y2, *, kind: str = "fedpara",
+                        out_dtype=None) -> torch.Tensor:
+    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ), computed densely in fp32; (m, n), or
+    (C, m, n) for client-stacked factors."""
+    w1 = x1.float() @ y1.float().mT
+    w2 = x2.float() @ y2.float().mT
+    return _hadamard(w1, w2, kind).to(out_dtype or x1.dtype)
+
+
+# ---------------------------------------------- the kernels' precision
+
+_TF32_MASK = -0x2000   # 0xffffe000 as int32: sign, exponent, 10 mantissa bits
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits, the low 13 cleared), to nearest
+    with ties away from zero, by bit operations on an int32 view: the
+    host twin of ``csrc/mma.cuh:tf32_rna``. Returns fp32 holding TF32
+    values."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def split_3xtf32(t: torch.Tensor):
+    """(hi, lo) as the fused matmul's 3xTF32 products take an fp32
+    operand: hi = tf32_round(t), and lo = t - hi (exact in fp32) as the
+    tensor core reads it, truncated to TF32 (``csrc/mma.cuh:split``)."""
+    hi = tf32_round(t)
+    lo = (t.float() - hi).contiguous().view(torch.int32) & _TF32_MASK
+    return hi, lo.view(torch.float32)
+
+
+def _tf32_product(a, b, passes: int) -> torch.Tensor:
+    """a @ bᵀ from TF32 operands with fp32 sums: the single pass
+    a_hi·b_hiᵀ, or the 3xTF32 sum a_lo·b_hiᵀ + a_hi·b_loᵀ + a_hi·b_hiᵀ."""
+    ah, al = split_3xtf32(a)
+    bh, bl = split_3xtf32(b)
+    if passes == 1:
+        return ah @ bh.mT
+    if passes == 3:
+        return al @ bh.mT + ah @ bl.mT + ah @ bh.mT
+    raise ValueError(f"passes must be 1 or 3, got {passes}")
+
+
+def fedpara_compose_tf32(x1, y1, x2, y2, *, kind: str = "fedpara",
+                         passes: int = 3) -> torch.Tensor:
+    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) in fp32 with each rank-r product
+    taken as the fused matmul (``csrc/fedpara_matmul.cu``) takes it on
+    the tensor cores: ``passes=3`` is its 3xTF32 compose, ``passes=1`` a
+    single TF32 pass (the cheaper design it does not use)."""
+    w1 = _tf32_product(x1.float(), y1.float(), passes)
+    w2 = _tf32_product(x2.float(), y2.float(), passes)
+    return _hadamard(w1, w2, kind)
 
 
 def fedpara_matmul_ref(x, x1, y1, x2, y2, *, kind: str = "fedpara",

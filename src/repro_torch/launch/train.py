@@ -30,7 +30,8 @@ round's, plus ``comm_up_mb`` / ``comm_down_mb``).
   ``jax.random``-initialized MLP), so a port run can match a reference
   run record for record; without it the port draws its own seeded init.
 
-Not ported yet: ``--mode pods`` (ROADMAP A14/A15), the async engine
+Not ported yet: ``--mode pods`` (ROADMAP A8; the default mode, as in the
+reference, so an FL run passes ``--mode fl``), the async engine
 (A12), codecs other than identity (A7), rank tiers, faults and defenses
 (A11).
 
@@ -125,7 +126,7 @@ def final_record(srv: FLServer) -> Dict[str, Any]:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--mode", default="fl", choices=["fl", "pods"])
+    ap.add_argument("--mode", default="pods", choices=["fl", "pods"])
     ap.add_argument("--model", default="mlp")
     ap.add_argument("--strategy", default="fedavg")
     ap.add_argument("--rounds", type=int, default=10)
@@ -174,8 +175,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     host wall time, synchronized with the card)."""
     args = parser().parse_args(argv)
     if args.mode == "pods":
-        raise SystemExit("--mode pods (the transformer pod trainer) is not "
-                         "ported yet: ROADMAP A14/A15")
+        raise SystemExit("--mode pods (the transformer pod trainer, the "
+                         "default as in the reference) is not ported yet: "
+                         "ROADMAP A8; pass --mode fl")
     srv = build_fl(args)
     ckpt = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     if args.resume:

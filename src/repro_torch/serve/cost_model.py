@@ -40,6 +40,7 @@ import torch
 H100_HBM_GBPS = 3350.0
 H100_BF16_TFLOPS = 989.0
 H100_FP32_TFLOPS = 67.0
+H100_TF32_TFLOPS = 495.0   # tensor cores, dense (chip_smoke.py prices 3xTF32 at a third)
 
 MODES = ("precompose", "fused")
 

@@ -219,6 +219,75 @@ def test_port_server_restores_a_reference_server_checkpoint(tmp_path):
         assert np.abs(np.asarray(a) - b).max() < DEFAULT_ATOL
 
 
+def _stale_leaves(tree):
+    """{path: numpy leaf} of a ``_stale_ref`` tree, port or reference."""
+    from repro.checkpoint.manager import _flatten_with_paths
+
+    if isinstance(jax.tree.leaves(tree)[0], torch.Tensor):
+        return {p: v.numpy() for p, v in flatten_with_paths(tree)}
+    return {p: np.asarray(v) for p, v in _flatten_with_paths(tree)}
+
+
+def test_stale_ref_is_checkpointed_as_the_reference_does(tmp_path):
+    """A 2-round sequential MLP run of the reference CLI and of the port
+    CLI from the reference's init, each checkpointing every round: both
+    checkpoints hold the same sections and paths, ``stale_ref`` (the
+    last decoded broadcast) included and within ``DEFAULT_ATOL``; a
+    reference server restored from the port's checkpoint has the port's
+    ``_stale_ref``, and a port server restored from the reference's has
+    the reference's."""
+    import contextlib
+    import io
+    import sys
+
+    from repro.configs.base import ParamCfg as JParamCfg
+    from repro.launch import train as jtrain
+    from repro.nn import recurrent as jrec
+
+    jcfg = jrec.MLPConfig(in_dim=784, hidden=256, classes=10,
+                          param=JParamCfg(kind="fedpara", gamma=0.3,
+                                          min_dim_for_factorization=8))
+    init = str(tmp_path / "init.npz")
+    interop.save_npz(jax.tree.map(np.asarray, jrec.init_mlp_model(
+        jax.random.PRNGKey(0), jcfg)), init)
+    argv = ["--mode", "fl", "--model", "mlp", "--rounds", "2", "--engine",
+            "sequential", "--clients", "10", "--local-epochs", "1", "--lr",
+            "0.05", "--ckpt-every", "1"]
+    d_ref, d_port = str(tmp_path / "ref"), str(tmp_path / "port")
+    old = sys.argv
+    try:
+        sys.argv = ["train", *argv, "--ckpt-dir", d_ref]
+        with contextlib.redirect_stdout(io.StringIO()):
+            jtrain.main()
+    finally:
+        sys.argv = old
+    port = train.main([*argv, "--ckpt-dir", d_port, "--device", "cpu",
+                       "--init-params", init])["server"]
+
+    want, _, step_ref = JaxManager(d_ref).restore_items()
+    got, _, step_port = CheckpointManager(d_port).restore_items()
+    assert step_ref == step_port == 2
+    assert sorted(got) == sorted(want)
+    stale = sorted(p for p in want if p.startswith("stale_ref/"))
+    assert stale and stale == sorted("stale_ref/" + p
+                                     for p in _stale_leaves(port._stale_ref))
+    for p in stale:
+        assert np.abs(got[p].numpy() - np.asarray(want[p])).max() \
+            < DEFAULT_ATOL, p
+
+    ref = make_mini_server("sequential", "dict")
+    ref.restore_checkpoint(JaxManager(d_port))
+    mine = _stale_leaves(port._stale_ref)
+    theirs = _stale_leaves(ref._stale_ref)
+    assert sorted(theirs) == sorted(mine)
+    for p, v in mine.items():
+        assert theirs[p].tobytes() == v.tobytes(), p
+    back = _port_server()
+    back.restore_checkpoint(CheckpointManager(d_ref))
+    for p, v in _stale_leaves(back._stale_ref).items():
+        assert v.tobytes() == np.asarray(want["stale_ref/" + p]).tobytes(), p
+
+
 def test_unported_sections_raise_naming_their_item(tmp_path):
     srv = _port_server()
     tree = srv._checkpoint_tree()

@@ -291,3 +291,49 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             train.main(["--mode", "fl", "--model", "mlp", "--rounds", "1",
                         *engine])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_cli_defaults_to_the_reference_mode(monkeypatch):
+    """With no arguments the port's CLI picks the reference's default
+    mode (``pods``) and refuses it by its ROADMAP item."""
+    import argparse
+
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train
+
+    port_default = train.parser().parse_args([]).mode
+
+    class Parsed(Exception):
+        pass
+
+    orig = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        raise Parsed(orig(self, [], namespace))
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(Parsed) as got:
+        jtrain.main()
+    monkeypatch.undo()
+    assert port_default == got.value.args[0].mode == "pods"
+    with pytest.raises(SystemExit, match="A8"):
+        train.main([])
+
+
+def test_lowrank_kind_is_refused_by_its_roadmap_item():
+    """The reference supports ``kind="lowrank"``; the port refuses it
+    with ``NotImplementedError`` naming ROADMAP A2, while a truly unknown
+    kind keeps its ``ValueError``."""
+    jnode = jpar.init_linear(jax.random.PRNGKey(0), 16, 12, kind="lowrank",
+                             gamma=0.3)
+    assert jpar.materialize(jnode, "lowrank").shape == (16, 12)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="A2"):
+        par.init_linear(gen, 16, 12, kind="lowrank", gamma=0.3)
+    node = interop.from_jax_params(jax.tree.map(np.asarray, jnode))
+    with pytest.raises(NotImplementedError, match="A2"):
+        par.materialize(node, "lowrank")
+    with pytest.raises(ValueError, match="unknown parameterization kind"):
+        par.init_linear(gen, 16, 12, kind="bogus")
+    with pytest.raises(ValueError, match="unknown parameterization kind"):
+        par.materialize(node, "bogus")

@@ -150,3 +150,78 @@ def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.zeros(2, 8, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.w8_matmul(x, torch.zeros(8, 4, dtype=torch.int8, device="meta"))
+
+
+# ------------------------------------- the fused matmul's precision
+
+def test_tf32_round_is_nearest_ties_away():
+    """``ref.tf32_round`` keeps 10 mantissa bits, to nearest with ties
+    away from zero, on the bit pattern (``csrc/mma.cuh:tf32_rna``)."""
+    from repro_torch.kernels import ref
+
+    bits = torch.tensor([0x3F800000, 0x3F800FFF, 0x3F801000, 0x3F801001,
+                         0x3F803000, 0xBF801000 - (1 << 32), 0x3F7FF000,
+                         0x00000000], dtype=torch.int64).to(torch.int32)
+    want = torch.tensor([0x3F800000, 0x3F800000, 0x3F802000, 0x3F802000,
+                         0x3F804000, 0xBF802000 - (1 << 32), 0x3F800000,
+                         0x00000000], dtype=torch.int64).to(torch.int32)
+    got = ref.tf32_round(bits.view(torch.float32)).view(torch.int32)
+    assert torch.equal(got, want)
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = ref.split_3xtf32(v)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float((hi - v).abs().max() / v.abs().max()) <= 2.0 ** -11
+    assert float((hi + lo - v).abs().max() / v.abs().max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("r", [160, 70, 211])
+@pytest.mark.parametrize("kind", ["fedpara", "fedpara_tanh", "pfedpara"])
+def test_3xtf32_compose_keeps_fp32_accuracy(r, kind):
+    """The fused matmul composes W from TF32 halves (3xTF32). At
+    qwen3-8b's ranks that stays within 2e-6 of an fp64 compose, the
+    accuracy the fp32 gate (1e-5) needs; a single TF32 pass does not."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(r)
+    m, n = 64, 48
+    fac = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(r))
+                            .astype(np.float32))
+           for s in ((m, r), (n, r), (m, r), (n, r))]
+    want = ref._hadamard(fac[0].double() @ fac[1].double().T,
+                         fac[2].double() @ fac[3].double().T, kind)
+    scale = float(want.abs().max())
+    three = ref.fedpara_compose_tf32(*fac, kind=kind, passes=3)
+    one = ref.fedpara_compose_tf32(*fac, kind=kind, passes=1)
+    err3 = float((three.double() - want).abs().max()) / scale
+    err1 = float((one.double() - want).abs().max()) / scale
+    assert err3 < 2e-6, err3
+    assert err1 > 1e-4, err1
+
+
+def test_bounds_price_fp32_products_at_the_3xtf32_rate():
+    """chip_smoke.py's bounds: fp32 matrix products (composes, the Gram
+    route, fp32 contractions) at 495/3 TFLOP/s, bf16 at 989; per
+    qwen3-8b layer of 7 projections K1 at 512 rows takes 1.117 ms, K2
+    at 4 clients x 128 rows 3.867 ms and K5 0.917 ms, within 1%."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    def layer(fn):
+        return sum(fn(m, n, r) for m, n, r in cs.SHAPES.values())
+
+    def k1(m, n, r, rows=512, clients=1):
+        fo = cs.fedpara_ops(rows, m, n, r, "fedpara")
+        return cs.bound_ms(0.0, clients * fo["f16"], clients * fo["f32"])[0]
+
+    assert layer(k1) == pytest.approx(1.117, rel=0.01)
+    assert layer(lambda m, n, r: k1(m, n, r, rows=128, clients=4)) == \
+        pytest.approx(3.867, rel=0.01)
+    assert layer(lambda m, n, r: cs.bound_ms(
+        0.0, f32=cs.compose_ops(m, n, r))[0]) == pytest.approx(0.917, rel=0.01)
+    # elementwise fp32 work (K7's weighted sum) keeps the CUDA-core rate
+    assert cs.bound_ms(0.0, elem=67e9)[0] == pytest.approx(1.0)
