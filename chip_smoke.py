@@ -9,8 +9,10 @@ PyTorch version. Phases, each printed on its own line; any failed check
 raises, so the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
-   one process per source, all at once); print the build time and the
-   card's name and power limit;
+   one process per source, all at once); print the build time, the
+   registers and spills ``-Xptxas -v`` reports for the fused and serve
+   kernels, the serve kernels' dynamic shared memory, and the card's
+   name and power limit;
 2. every kernel against its plain version at every full-width qwen3-8b
    shape, bf16 at 4 rows (decode) and 512 rows (prefill; the backward
    kernels K3 and K4 at 512 rows only); the fp32 builds that the other
@@ -26,7 +28,10 @@ raises, so the script exits non-zero:
    64 rows; the dequant-accumulate K7 for 16 clients over one qwen3-8b
    layer's factors (int8, fp16 and fp32 wire; ``torch.addmv`` on the
    widened stack as the yardstick), a ragged length, an unaligned leaf,
-   zero coefficients and the MLP's streaming leaves; the compose
+   zero coefficients and the MLP's streaming leaves; K8's prefill
+   kernel at 33, 100 and 517 rows with ragged m and n (int8 and fp16
+   caches, bf16 and fp32 activations) and K10 at 1, 17 and 129 rows per
+   user with strided user slabs (fp32 activations); the compose
    kernels K5 (W of one projection, fp32, fp16 and bf16, all kinds) and
    K6 (the projection stacked over 2, 4 and, to fp16 W, 36 layers, the
    depths of phases 10 and 4) at the same shapes, and at the reference
@@ -38,7 +43,8 @@ raises, so the script exits non-zero:
    decode) against precompose fp16 (the cache composed by K6, at least
    7 stacked launches; K8), fp32 activations;
 5. pFedPara, 4 resident users, precompose int8, 4 layers: K10 (bf16)
-   against each user's merge-then-plain logits (fp32);
+   against each user's merge-then-plain logits (fp32); prefill and 4
+   decode steps timed with CUDA events;
 6. 2 layers: the engine on the card against the same engine on the
    host (plain versions), same weights;
 7. one full-width qwen3-8b layer's 7 projections, 512 rows, forward and
@@ -59,7 +65,8 @@ raises, so the script exits non-zero:
     checkpoint: the global model through its int8 (K5) and fp16 (K6)
     caches against fused, the 2 users through K10 and fused against
     merge-then-plain;
-11. the ``{"kernels": [...]}`` line, then the closing ``{"ok": true}``.
+11. the ``{"kernels": [...]}`` line (K8 twice: its decode and its
+    prefill shape), then the closing ``{"ok": true}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--quick`` builds and checks the kernels at two shapes and stops;
@@ -257,10 +264,13 @@ def phase_build():
                     for ln in str(info["log"]).splitlines()
                     if "registers" in ln or "spill" in ln})
     fused = ptxas_entries(str(built.get("fedpara_matmul", {}).get("log", "")))
+    serve = ptxas_entries(str(built.get("serve_matmul", {}).get("log", "")))
     for name in build.SOURCES:
         build.library(name)
+    serve_smem = _serve_smem()
     say("build", seconds=round(secs, 3), built=sorted(built),
-        ptxas=ptxas[:40], fedpara_matmul_ptxas=fused)
+        ptxas=ptxas[:40], fedpara_matmul_ptxas=fused,
+        serve_matmul_ptxas=serve, serve_smem_bytes=serve_smem)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -269,7 +279,28 @@ def phase_build():
         "nvidia-smi: " + smi.stderr.strip()
     print(card, flush=True)
     return card, {"seconds": secs, "built": sorted(built), "ptxas": ptxas,
-                  "fedpara_matmul_ptxas": fused}
+                  "fedpara_matmul_ptxas": fused, "serve_matmul_ptxas": serve,
+                  "serve_smem_bytes": serve_smem}
+
+
+def _serve_smem() -> dict:
+    """Dynamic shared memory per block of K8 and K9/K10 (ptxas reports
+    static shared memory only) at the main path's configurations: K8 at
+    4 (decode) and 512 (prefill) rows, K10 at 1 and 128 rows per user at
+    qwen3-8b's largest rank; bf16 and fp32 activations, int8 and fp16
+    caches."""
+    from repro_torch.kernels import serve_matmul as sm
+
+    out = {}
+    for xd, xn in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for wd, wn in ((torch.int8, "int8"), (torch.float16, "fp16")):
+            for rows in (4, 512):
+                out[f"w8 rows={rows} {xn} {wn}"] = sm.smem_bytes(
+                    "w8", rows, 0, xd, wd)
+            for t in (1, 128):
+                out[f"resid t={t} r=211 {xn} {wn}"] = sm.smem_bytes(
+                    "resid", t, 211, xd, wd)
+    return out
 
 
 # ------------------------------------------------------------ phase 2
@@ -464,6 +495,7 @@ def phase_kernels(clock: Clock, quick: bool):
                             timed=(rows, m, n, r) in mlp)
     _agg_cases(record, gen, quick)
     _compose_ragged_cases(record, gen)
+    _serve_ragged_cases(record, gen)
     if quick:
         return cases
     # ragged fp32 shapes: every edge masked, tighter tolerance
@@ -492,6 +524,52 @@ def phase_kernels(clock: Clock, quick: bool):
                                               ux2, uy2), None, 1e-5, 0,
                timed=False)
     return cases
+
+
+def _serve_ragged_cases(record, gen):
+    """K8 at prefill widths on its tensor-core kernel (rows 33, 100 and
+    517; m and n ragged, rows of x or of the cache not 16-byte aligned in
+    some: the masked narrower copies), int8 and fp16 caches, bf16 (1e-2)
+    and fp32 (1e-5) activations; and K10 at 1, 17 and 129 rows per user
+    with each user's factor slab read through a strided view (user
+    stride > m·r, as the serve arena's layer-stacked slabs are), fp32
+    activations, int8 and fp16 caches, at 1e-5."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn.layers import quantize_int8
+
+    for rows, m, n in ((33, 1000, 1000), (100, 130, 97), (517, 4096, 1000)):
+        w = torch.randn((m, n), generator=gen, device="cuda")
+        q = quantize_int8(w)
+        caches = (("int8", q["w_q"], q["scale"]), ("fp16", w.half(), None))
+        for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            x = torch.randn((rows, m), generator=gen, device="cuda").to(dt)
+            for cname, wc, sc in caches:
+                record("w8_matmul", f"ragged {rows}x{m}x{n} {_DT_NAME[dt]} "
+                       f"{cname}", lambda x=x, wc=wc, sc=sc: ops.w8_matmul(
+                           x, wc, sc),
+                       lambda x=x, wc=wc, sc=sc: ref.w8_matmul_ref(x, wc, sc),
+                       None, tol, 0, timed=False)
+    for U, t, m, n, r in ((4, 1, 4096, 1024, 70), (3, 17, 1000, 1000, 37),
+                          (2, 129, 520, 300, 211)):
+        x1, y1, x2, y2 = _factors(gen, m, n, r)
+        w1 = x1 @ y1.T
+        q = quantize_int8(w1)
+        big_x2 = torch.stack([torch.stack([x2 * (1 - 0.2 * u), -x2])
+                              for u in range(U)])          # (U, 2, m, r)
+        big_y2 = torch.stack([torch.stack([y2, 0.5 * y2, y2 * (1 + 0.1 * u)])
+                              for u in range(U)])          # (U, 3, n, r)
+        ux2, uy2 = big_x2[:, 0], big_y2[:, 2]
+        check(ux2.stride(0) > m * r and uy2.stride(0) > n * r,
+              "strided user slabs")
+        x = torch.randn((U, t, m), generator=gen, device="cuda")
+        for cname, wc, sc in (("int8", q["w_q"], q["scale"]),
+                              ("fp16", w1.half(), None)):
+            record("cache_residual_matmul",
+                   f"strided U={U} t={t} {m}x{n} r={r} fp32 {cname}",
+                   lambda wc=wc, sc=sc: ops.cache_residual_matmul(
+                       x, wc, sc, ux2, uy2),
+                   lambda wc=wc, sc=sc: ref.cache_residual_ref(
+                       x, wc, sc, ux2, uy2), None, 1e-5, 0, timed=False)
 
 
 # tolerance of the compose kernels by output type: fp32 sums in another
@@ -939,12 +1017,17 @@ def phase_users(measurements):
     uids = [0, 1, 2, 3]
     ops.reset_launches()
     cache = eng.init_cache(4, 64 + 4)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
     cache, logits = eng.prefill(prompts, cache, uids)
+    ev[1].record()
     tok = torch.argmax(logits, -1)[:, None]
     for i in range(4):
         _, cache = eng.decode_step(cache, tok, 64 + i, uids)
+    ev[2].record()
     torch.cuda.synchronize()
     counts = ops.launches()
+    prefill_ms, decode_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     check(counts["cache_residual_matmul"] >= 7 * 4 * 5,
           f"K10 launched {counts['cache_residual_matmul']} times")
     # the oracle: merge each user's half, materialize W, fp32 throughout
@@ -960,8 +1043,10 @@ def phase_users(measurements):
         errs.append(rel_err(logits[u:u + 1], want))
     check(max(errs) < 8e-2, f"per-user rel err {errs}")
     say("many_users", users=4, layers=4, launches=counts, rel_errs=errs,
+        prefill_ms=prefill_ms, decode_ms=decode_ms, decode_steps=4,
         arena_bytes=eng.arena_bytes(), state_bytes=eng.state_bytes())
-    measurements["users"] = {"rel_errs": errs, "launches": counts}
+    measurements["users"] = {"rel_errs": errs, "launches": counts,
+                             "prefill_ms": prefill_ms, "decode_ms": decode_ms}
     return counts
 
 
@@ -1450,46 +1535,43 @@ def _case(cases, kernel, name):
 
 
 def _summary(sums, launches, cases):
-    """One entry per kernel: the numbers of one layer's worth of its
-    main-path calls (sums over the layer's projections)."""
-    plan = {"w8_matmul": ("rows=4 int8", "one layer's 7 projections, int8 "
-                          "cache, 4 rows (a decode step)"),
-            "fedpara_matmul": ("rows=512 fedpara", "one layer's 7 "
-                               "projections, 512 rows (prefill)"),
-            "fedpara_dx": ("rows=512 fedpara", "one layer's 7 projections, "
-                           "512 rows, bf16"),
-            "fedpara_dfactors": ("rows=512 fedpara", "one layer's 7 "
-                                 "projections, 512 rows, bf16, both sides "
-                                 "(2 launches per projection)"),
-            "cache_residual_matmul": ("rows=4 users=4 int8",
-                                      "one layer's 7 projections, 4 users x "
-                                      "1 row (a decode step)"),
-            "fedpara_matmul_clients": (
-                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
-                f"one layer's 7 projections, {CLIENTS} clients x "
-                f"{CLIENT_ROWS} rows, bf16"),
-            "fedpara_dx_clients": (
-                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
-                f"one layer's 7 projections, {CLIENTS} clients x "
-                f"{CLIENT_ROWS} rows, bf16"),
-            "fedpara_dfactors_clients": (
-                f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
-                f"one layer's 7 projections, {CLIENTS} clients x "
-                f"{CLIENT_ROWS} rows, bf16, both sides"),
-            "dequant_acc": (
-                f"layer C={AGG_CLIENTS} L={AGG_L} fp32",
-                f"{AGG_CLIENTS} clients' fp32 (identity-codec) wire over "
-                "one qwen3-8b layer's FedPara factors, one launch"),
-            "fedpara_compose": ("fp32 fedpara", "one layer's 7 projections "
-                                "composed to fp32 W (the int8 cache's "
-                                "compose), one launch each"),
-            "fedpara_compose_stacked": (
-                f"L={MAIN_STACK} fp16 fedpara",
-                f"each of one layer's 7 projections stacked over "
-                f"{MAIN_STACK} layers, composed to fp16 W (phase 4's fp16 "
-                "cache), one launch each")}
+    """One entry per kernel and main-path shape: the numbers of one
+    layer's worth of its main-path calls (sums over the layer's
+    projections); K8 has its decode and its prefill entry."""
+    cl = f"{CLIENTS} clients x {CLIENT_ROWS} rows, bf16"
+    plan = [
+        ("w8_matmul", "rows=4 int8",
+         "one layer's 7 projections, int8 cache, 4 rows (a decode step)"),
+        ("w8_matmul", "rows=512 int8",
+         "one layer's 7 projections, int8 cache, 512 rows (a prefill of "
+         "4 x 128 tokens)"),
+        ("fedpara_matmul", "rows=512 fedpara",
+         "one layer's 7 projections, 512 rows (prefill)"),
+        ("fedpara_dx", "rows=512 fedpara",
+         "one layer's 7 projections, 512 rows, bf16"),
+        ("fedpara_dfactors", "rows=512 fedpara",
+         "one layer's 7 projections, 512 rows, bf16, both sides (2 launches "
+         "per projection)"),
+        ("cache_residual_matmul", "rows=4 users=4 int8",
+         "one layer's 7 projections, 4 users x 1 row (a decode step)"),
+        ("fedpara_matmul_clients", f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+         f"one layer's 7 projections, {cl}"),
+        ("fedpara_dx_clients", f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+         f"one layer's 7 projections, {cl}"),
+        ("fedpara_dfactors_clients", f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
+         f"one layer's 7 projections, {cl}, both sides"),
+        ("dequant_acc", f"layer C={AGG_CLIENTS} L={AGG_L} fp32",
+         f"{AGG_CLIENTS} clients' fp32 (identity-codec) wire over one "
+         "qwen3-8b layer's FedPara factors, one launch"),
+        ("fedpara_compose", "fp32 fedpara",
+         "one layer's 7 projections composed to fp32 W (the int8 cache's "
+         "compose), one launch each"),
+        ("fedpara_compose_stacked", f"L={MAIN_STACK} fp16 fedpara",
+         f"each of one layer's 7 projections stacked over {MAIN_STACK} "
+         "layers, composed to fp16 W (phase 4's fp16 cache), one launch "
+         "each")]
     out = []
-    for kernel, (key, at) in plan.items():
+    for kernel, key, at in plan:
         tot = sums[kernel].get(key) or _case(cases, kernel, key)
         out.append({"name": kernel, "route": "cuda",
                     "source": SOURCES[kernel], "replaces": REPLACES[kernel],

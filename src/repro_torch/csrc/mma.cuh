@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a (inline PTX):
-// cp.async with zero fill, mbarriers, ldmatrix, mma.sync for TF32
+// cp.async with zero fill (completed through mbarriers or groups),
+// mbarriers, ldmatrix (plain and transposed), mma.sync for TF32
 // (m16n8k8) and bf16 (m16n8k16) with fp32 accumulators, and the TF32
 // split behind the "3xTF32" products that keep fp32 accuracy on the
 // tensor cores.
@@ -93,6 +94,15 @@ __device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// cp.async groups: commit this thread's copies issued so far as one
+// group; wait until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ldmatrix: x4 loads a 16 x 16 bf16 A fragment (lane l gives the address
 // of row l % 16, column 8 * (l / 16)); x2 loads a 16 (k) x 8 (n) B
@@ -100,6 +110,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // 8 * (l / 8)).
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// x4.trans loads two 16 (k) x 8 (n) B fragments from a [k][n] array:
+// lane l gives the address of row 8 * ((l / 8) % 2) + l % 8, column
+// 8 * (l / 16); r[0], r[1] are the B fragment of columns 0-7, r[2],
+// r[3] that of columns 8-15.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }

@@ -1,44 +1,30 @@
-// Shared tile machinery for the port's serve-path kernels (sm_90a).
+// Shared CUDA-core tile machinery for sm_90a: the rank-r tile compose
+// and K8's decode-width matmul.
 //
-// Every kernel here computes y = x · W' (· s) where W' is a weight tile
-// that never exists in device memory: it is built in shared memory from
-// what does live there (an int8/fp16 cache, rank-r factors, or both),
-// cast to the activation dtype, and contracted at once. The kernels
-// differ only in how a (BK x BN) tile of W' is built, so one driver,
-// `tiled_matmul`, takes a tile builder (see serve_matmul.cu):
+//   * `compose` builds (X Y^T) on a (BK x BN) tile for one or two factor
+//     pairs in fp32 on the CUDA cores: rank chunks of RC = 32 staged in
+//     shared memory, the next chunk prefetched into registers while this
+//     one is accumulated. The compose kernels K5/K6 (fedpara_compose.cu,
+//     Skinny: 128 x 32 tiles) and the factor gradients K4
+//     (fedpara_grad.cu, Wide: 32 x 32 tiles) use it.
+//   * `tiled_matmul` is K8 at decode width (serve_matmul.cu, rows <= 32):
+//     y = x · widen(W) (· s). Bound by the cache's bytes, not its
+//     operations: a block (256 threads) owns BN = 32 output columns and
+//     up to 32 rows and walks m in steps of BK = 128 rows; each step
+//     issues all of its global loads as 16-byte vectors (a masked scalar
+//     path where the shapes do not allow them), prefetches the next
+//     step's x and cache tiles into registers during this step's work,
+//     widens the cache tile in shared memory (rounded to x's dtype, as
+//     the reference widens it) and splits its contraction rows across the
+//     8 warps (one reduction at the end). The blocks are small, so that
+//     many stay resident per SM and keep loads in flight.
 //
-//   * W8Tile      — widen an int8 or fp16 cache tile (K8);
-//   * ResidTile   — cache tile ⊙ (X2ᵤY2ᵤᵀ + 1) for one user (K9/K10).
-//
-// The compose kernels K5/K6 (fedpara_compose.cu) and the factor
-// gradients K4 (fedpara_grad.cu) use the rank-r `compose` below on its
-// own. The fused FedPara matmul (K1-K3, fedpara_matmul.cu) has its own
-// tensor-core kernel.
-//
-// A block (256 threads) owns BN = 32 output columns and a group of
-// activation rows, and walks the contraction axis m in steps of BK
-// inside the block (Hopper has no sequential grid axis). Two block
-// shapes:
-//
-//   * Wide   (rows > 32, prefill): up to 512 rows, BK = 32. Every row
-//     of the block reuses each tile it built, so a 512-row prefill
-//     builds each W' tile once, not once per row block as the TPU grid
-//     did. The fp32 accumulators (512 x 32) sit in registers, 16 rows x
-//     4 columns per thread.
-//   * Skinny (rows <= 32, decode): BK = 128, so each step moves 4x the
-//     cache bytes; the blocks are small enough that many stay resident
-//     per SM and keep loads in flight.
-//
-// Each step first issues all of its global loads (16-byte vectors where
-// the shapes allow, else a masked scalar path), then stores them to
-// shared memory; the rank-r factor chunks of the compose are prefetched
-// into registers one chunk ahead. Skinny blocks also prefetch the next
-// step's x and cache tiles during this step, and split each step's
-// contraction rows across their 8 warps (one reduction at the end). Ragged edges in rows, m, n and r are
-// masked in the kernel: the host pads nothing.
-//
-// Still a simple first version: CUDA-core fp32 FMAs. Tensor cores
-// (mma/wgmma), TMA and deeper pipelines are later work.
+// Ragged edges in rows, m, n and r are masked in the kernels: the host
+// pads nothing. Still CUDA-core fp32 FMAs: the tensor-core kernels are
+// fused.cuh (K1-K3, K9/K10) and serve_matmul.cu's prefill K8. What is
+// undone here: K4 and K5/K6 on the tensor cores (their compose is the
+// one above), and K8 at decode width nearer its byte bound (12x, PERF.md
+// section 6).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,24 +37,18 @@ namespace tiles {
 constexpr int NT = 256;                   // threads per block
 constexpr int BN = 32;                    // output columns per block
 constexpr int RC = 32;                    // rank columns per compose chunk
-constexpr int RG = NT / (BN / 4);         // 32 row groups in the matmul
 
 template <int MAXR_, int BK_>
 struct Shape {
   static constexpr int MAXR = MAXR_;      // activation rows per block
-  static constexpr int BK = BK_;          // contraction rows per step
-  // Skinny blocks split each step's contraction rows across the 8 warps
-  // (each warp sums its own slice; one reduction at the end) and
-  // prefetch the next step's tiles into registers during this one.
-  static constexpr bool SPLITK = MAXR <= 32;
-  static constexpr int TM = SPLITK ? MAXR / 4 : MAXR / RG;  // rows per thread
-  static constexpr int XS = BK + 1;       // padded x-tile row stride
+  static constexpr int BK = BK_;          // rows of m per step
+  static constexpr int TM = MAXR / 4;     // rows per thread in the matmul
   static constexpr int CJ = BK / (NT / BN);   // compose entries per thread
   static constexpr int AL = BK * RC / NT;     // X-chunk values per thread
   static constexpr int BL = BN * RC / NT;     // Y-chunk values per thread
 };
-using Wide = Shape<512, 32>;
-using Skinny = Shape<32, 128>;
+using Wide = Shape<32, 32>;     // K4's compose tile
+using Skinny = Shape<32, 128>;  // K5/K6's compose tile and K8's decode matmul
 
 enum { X_F32 = 0, X_BF16 = 1 };           // activation dtype codes
 enum { W_I8 = 0, W_F16 = 1 };             // cache dtype codes
@@ -216,34 +196,40 @@ __device__ __forceinline__ void compose(const float* const (&X)[NF],
   }
 }
 
-// ------------------------------------------------------- the driver
+// ------------------------------------------------------- K8 at decode
 
-// Shared memory of one block: ws[BK][BN] | NCH factor chunks | x tile.
-template <class S>
-inline size_t smem_bytes(int rows, int nch) {
-  const int nr = rows < S::MAXR ? rows : S::MAXR;
-  return sizeof(float) * (size_t)(S::BK * BN + nr * S::XS) + nch * sizeof(FactorChunk<S>);
+// Shared memory of one block: the widened cache tile ws[BK][BN], then
+// the x tile (rows x BK, padded against bank conflicts).
+constexpr int XS = Skinny::BK + 1;        // padded x-tile row stride
+inline size_t smem_bytes(int rows) {
+  const int nr = rows < Skinny::MAXR ? rows : Skinny::MAXR;
+  return sizeof(float) * (size_t)(Skinny::BK * BN + nr * XS);
+}
+
+inline dim3 grid_for(int rows, int n) {
+  return dim3((n + BN - 1) / BN, (rows + Skinny::MAXR - 1) / Skinny::MAXR);
 }
 
 // Counts of 16-byte vectors one thread moves per step.
-template <class S, typename XT, typename WT>
+template <typename XT, typename WT>
 struct VecCounts {
-  static constexpr int VX = 16 / sizeof(XT);          // x values per vector
-  static constexpr int XSPR = S::BK / VX;             // x vectors per tile row
-  static constexpr int XSL = S::MAXR * XSPR / NT;     // x vectors per thread
-  static constexpr int VW = 16 / sizeof(WT);          // cache values per vector
-  static constexpr int WSPR = BN / VW;                // cache vectors per tile row
-  static constexpr int WSL = (S::BK * WSPR + NT - 1) / NT;
+  static constexpr int VX = 16 / sizeof(XT);             // x values per vector
+  static constexpr int XSPR = Skinny::BK / VX;           // x vectors per tile row
+  static constexpr int XSL = Skinny::MAXR * XSPR / NT;   // x vectors per thread
+  static constexpr int VW = 16 / sizeof(WT);             // cache values per vector
+  static constexpr int WSPR = BN / VW;                   // cache vectors per tile row
+  static constexpr int WSL = (Skinny::BK * WSPR + NT - 1) / NT;
 };
 
 // Issue every global read of the step at k0 (x rows and cache tile)
 // into registers; masked vectors load as zeros.
-template <class S, typename XT, typename Tile>
-__device__ __forceinline__ void fetch_tiles(
-    const XT* __restrict__ xb, const Tile& tile, int nr, int m, int n, int n0, int k0,
-    uint4 (&xr)[VecCounts<S, XT, typename Tile::WT>::XSL],
-    uint4 (&wr)[VecCounts<S, XT, typename Tile::WT>::WSL]) {
-  using C = VecCounts<S, XT, typename Tile::WT>;
+template <typename XT, typename WT>
+__device__ __forceinline__ void fetch_tiles(const XT* __restrict__ xb,
+                                            const WT* __restrict__ w, int nr, int m, int n,
+                                            int n0, int k0,
+                                            uint4 (&xr)[VecCounts<XT, WT>::XSL],
+                                            uint4 (&wr)[VecCounts<XT, WT>::WSL]) {
+  using C = VecCounts<XT, WT>;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int q = 0; q < C::XSL; ++q) {
@@ -251,50 +237,43 @@ __device__ __forceinline__ void fetch_tiles(
     const int row = s / C::XSPR, k = k0 + (s % C::XSPR) * C::VX;
     xr[q] = (row < nr && k < m) ? load16(xb + (size_t)row * m + k) : make_uint4(0, 0, 0, 0);
   }
-  if constexpr (Tile::kHasW) {
 #pragma unroll
-    for (int q = 0; q < C::WSL; ++q) {
-      const int s = tid + q * NT;
-      const int k = k0 + s / C::WSPR, j = n0 + (s % C::WSPR) * C::VW;
-      wr[q] = (s < S::BK * C::WSPR && k < m && j < n) ? load16(tile.w + (size_t)k * n + j)
-                                                      : make_uint4(0, 0, 0, 0);
-    }
+  for (int q = 0; q < C::WSL; ++q) {
+    const int s = tid + q * NT;
+    const int k = k0 + s / C::WSPR, j = n0 + (s % C::WSPR) * C::VW;
+    wr[q] = (s < Skinny::BK * C::WSPR && k < m && j < n) ? load16(w + (size_t)k * n + j)
+                                                         : make_uint4(0, 0, 0, 0);
   }
 }
 
-// Tile interface (see the .cu files):
-//   static constexpr bool kHasW; using WT = ...; const WT* w;
-//   float prep(float) const           — what a cache value becomes in ws
-//   void finish(k0, n0, ws, ch) const — compose into ws (syncs inside)
-template <class S, typename XT, typename Tile>
-__device__ __forceinline__ void tiled_matmul(const XT* __restrict__ x, XT* __restrict__ y,
-                                             const float* __restrict__ scale, int rows,
-                                             int m, int n, const Tile& tile, float* smem) {
-  using WT = typename Tile::WT;
-  using C = VecCounts<S, XT, WT>;
+// y (rows, n) = (x (rows, m) · W (m, n)) · scale, W int8 or fp16 widened
+// to x's dtype in shared memory; block (bx, by) owns columns 32 bx.. and
+// rows 32 by.. (grid_for).
+template <typename XT, typename WT>
+__device__ __forceinline__ void tiled_matmul(const XT* __restrict__ x,
+                                             const WT* __restrict__ w, XT* __restrict__ y,
+                                             const float* __restrict__ scale, int rows, int m,
+                                             int n, float* smem) {
+  using S = Skinny;
+  using C = VecCounts<XT, WT>;
   constexpr int VX = C::VX, XSPR = C::XSPR, XSL = C::XSL;
   constexpr int VW = C::VW, WSPR = C::WSPR, WSL = C::WSL;
 
   float (*ws)[BN] = reinterpret_cast<float (*)[BN]>(smem);
-  FactorChunk<S>* ch = reinterpret_cast<FactorChunk<S>*>(smem + S::BK * BN);
-  float* xs = smem + S::BK * BN + Tile::kChunks * (sizeof(FactorChunk<S>) / sizeof(float));
+  float* xs = smem + S::BK * BN;
 
   const int n0 = blockIdx.x * BN;
   const int row0 = blockIdx.y * S::MAXR;
   const int nr = min(S::MAXR, rows - row0);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  // matmul mapping: column quad cq; rows rg + i * rstride
-  const int cq = (S::SPLITK ? lane : tid) % (BN / 4);
-  const int rg = (S::SPLITK ? lane : tid) / (BN / 4);
-  constexpr int rstride = S::SPLITK ? 4 : RG;
-  constexpr int KW = S::SPLITK ? S::BK / (NT / 32) : S::BK;   // k rows per warp
-  const int kw0 = S::SPLITK ? warp * KW : 0;
+  // matmul mapping: column quad cq, rows rg + 4i; warp w sums its own
+  // KW rows of each step
+  const int cq = lane % (BN / 4), rg = lane / (BN / 4);
+  constexpr int KW = S::BK / (NT / 32);
+  const int kw0 = warp * KW;
   const XT* xb = x + (size_t)row0 * m;
-  const bool xvec = aligned16(x) && m % VX == 0;
-  bool wvec = true;
-  if constexpr (Tile::kHasW) wvec = aligned16(tile.w) && n % VW == 0;
-  const bool vec = xvec && wvec;
+  const bool vec = aligned16(x) && m % VX == 0 && aligned16(w) && n % VW == 0;
 
   float acc[S::TM][4];
 #pragma unroll
@@ -302,116 +281,86 @@ __device__ __forceinline__ void tiled_matmul(const XT* __restrict__ x, XT* __res
 
   uint4 xr[XSL];
   uint4 wr[WSL];
-  if (vec && S::SPLITK) fetch_tiles<S>(xb, tile, nr, m, n, n0, 0, xr, wr);
+  if (vec) fetch_tiles<XT, WT>(xb, w, nr, m, n, n0, 0, xr, wr);
 
   for (int k0 = 0; k0 < m; k0 += S::BK) {
     if (vec) {
-      if (!S::SPLITK) fetch_tiles<S>(xb, tile, nr, m, n, n0, k0, xr, wr);
 #pragma unroll
       for (int q = 0; q < XSL; ++q) {
         const int s = tid + q * NT;
         const int row = s / XSPR, kk = (s % XSPR) * VX;
         if (row < nr) {
 #pragma unroll
-          for (int e = 0; e < VX; ++e) xs[row * S::XS + kk + e] = elem<XT>(xr[q], e);
+          for (int e = 0; e < VX; ++e) xs[row * XS + kk + e] = elem<XT>(xr[q], e);
         }
       }
-      if constexpr (Tile::kHasW) {
 #pragma unroll
-        for (int q = 0; q < WSL; ++q) {
-          const int s = tid + q * NT;
-          if (s < S::BK * WSPR) {
-            const int kk = s / WSPR, c = (s % WSPR) * VW;
+      for (int q = 0; q < WSL; ++q) {
+        const int s = tid + q * NT;
+        if (s < S::BK * WSPR) {
+          const int kk = s / WSPR, c = (s % WSPR) * VW;
 #pragma unroll
-            for (int e = 0; e < VW; ++e) ws[kk][c + e] = tile.prep(elem<WT>(wr[q], e));
-          }
+          for (int e = 0; e < VW; ++e) ws[kk][c + e] = round_to<XT>(elem<WT>(wr[q], e));
         }
       }
     } else {  // unaligned shapes: masked scalar loads
       for (int idx = tid; idx < nr * S::BK; idx += NT) {
         const int row = idx / S::BK, kk = idx % S::BK;
         const int k = k0 + kk;
-        xs[row * S::XS + kk] = k < m ? to_f(xb[(size_t)row * m + k]) : 0.f;
+        xs[row * XS + kk] = k < m ? to_f(xb[(size_t)row * m + k]) : 0.f;
       }
-      if constexpr (Tile::kHasW) {
-        for (int idx = tid; idx < S::BK * BN; idx += NT) {
-          const int kk = idx / BN, c = idx % BN;
-          const int k = k0 + kk, j = n0 + c;
-          ws[kk][c] = (k < m && j < n) ? tile.prep(to_f(tile.w[(size_t)k * n + j])) : 0.f;
-        }
+      for (int idx = tid; idx < S::BK * BN; idx += NT) {
+        const int kk = idx / BN, c = idx % BN;
+        const int k = k0 + kk, j = n0 + c;
+        ws[kk][c] = (k < m && j < n) ? round_to<XT>(to_f(w[(size_t)k * n + j])) : 0.f;
       }
     }
     __syncthreads();
-    if (vec && S::SPLITK && k0 + S::BK < m)  // in flight during this step's work
-      fetch_tiles<S>(xb, tile, nr, m, n, n0, k0 + S::BK, xr, wr);
-    tile.finish(k0, n0, ws, ch);
-    __syncthreads();
+    if (vec && k0 + S::BK < m)  // in flight during this step's work
+      fetch_tiles<XT, WT>(xb, w, nr, m, n, n0, k0 + S::BK, xr, wr);
 
     // ---- contract the x tile with the weight tile
 #pragma unroll 4
     for (int kk = kw0; kk < kw0 + KW; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(&ws[kk][cq * 4]);
+      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][cq * 4]);
 #pragma unroll
       for (int i = 0; i < S::TM; ++i) {
-        const int row = rg + i * rstride;
+        const int row = rg + i * 4;
         if (row < nr) {
-          const float xv = xs[row * S::XS + kk];
-          acc[i][0] += xv * w.x;
-          acc[i][1] += xv * w.y;
-          acc[i][2] += xv * w.z;
-          acc[i][3] += xv * w.w;
+          const float xv = xs[row * XS + kk];
+          acc[i][0] += xv * wv.x;
+          acc[i][1] += xv * wv.y;
+          acc[i][2] += xv * wv.z;
+          acc[i][3] += xv * wv.w;
         }
       }
     }
     __syncthreads();
   }
 
-  // The per-output-channel scale commutes with the row sum: applied
-  // once, to the fp32 accumulator.
-  if constexpr (S::SPLITK) {
-    // sum the 8 warps' partial products through shared memory (the
-    // tiles are dead by now: the loop ended on a barrier)
-    float* red = smem;
-#pragma unroll
-    for (int i = 0; i < S::TM; ++i) {
-      const int row = rg + i * rstride;
-      if (row < nr) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) red[(warp * nr + row) * BN + cq * 4 + q] = acc[i][q];
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < nr * BN; idx += NT) {
-      const int row = idx / BN, col = n0 + idx % BN;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < NT / 32; ++w) v += red[(w * nr + row) * BN + idx % BN];
-      if (col < n) {
-        if (scale != nullptr) v *= scale[col];
-        y[(size_t)(row0 + row) * n + col] = from_f<XT>(v);
-      }
-    }
-    return;
-  }
+  // sum the 8 warps' partial products through shared memory (the tiles
+  // are dead by now: the loop ended on a barrier). The per-output-channel
+  // scale commutes with the row sum: applied once, to the fp32 sum.
+  float* red = smem;
 #pragma unroll
   for (int i = 0; i < S::TM; ++i) {
-    const int row = rg + i * rstride;
-    if (row >= nr) continue;
+    const int row = rg + i * 4;
+    if (row < nr) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = n0 + cq * 4 + q;
-      if (col < n) {
-        float v = acc[i][q];
-        if (scale != nullptr) v *= scale[col];
-        y[(size_t)(row0 + row) * n + col] = from_f<XT>(v);
-      }
+      for (int q = 0; q < 4; ++q) red[(warp * nr + row) * BN + cq * 4 + q] = acc[i][q];
     }
   }
-}
-
-template <class S>
-inline dim3 grid_for(int rows, int n, int users) {
-  return dim3((n + BN - 1) / BN, (rows + S::MAXR - 1) / S::MAXR, users);
+  __syncthreads();
+  for (int idx = tid; idx < nr * BN; idx += NT) {
+    const int row = idx / BN, col = n0 + idx % BN;
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < NT / 32; ++wi) v += red[(wi * nr + row) * BN + idx % BN];
+    if (col < n) {
+      if (scale != nullptr) v *= scale[col];
+      y[(size_t)(row0 + row) * n + col] = from_f<XT>(v);
+    }
+  }
 }
 
 // Allow the block's dynamic shared memory above the 48 KB default (a

@@ -87,6 +87,37 @@ def fedpara_compose_tf32(x1, y1, x2, y2, *, kind: str = "fedpara",
     return _hadamard(w1, w2, kind)
 
 
+def w8_matmul_tf32(x, w, scale=None, *, passes: int = 2) -> torch.Tensor:
+    """y = (x @ W) · s with fp32 x as K8's prefill kernel takes it on the
+    tensor cores (``csrc/serve_matmul.cu``): W widened exactly (every
+    int8 and finite fp16 value is a TF32 value), x split into TF32 halves,
+    ``passes=2`` its x_hi·W + x_lo·W, ``passes=1`` x_hi·W alone; the scale
+    on the fp32 result. Returns fp32."""
+    wf = w.float()
+    xh, xl = split_3xtf32(x.float())
+    if passes == 1:
+        y = xh @ wf
+    elif passes == 2:
+        y = xl @ wf + xh @ wf
+    else:
+        raise ValueError(f"passes must be 1 or 2, got {passes}")
+    return y if scale is None else y * scale.reshape(1, -1).float()
+
+
+def cache_residual_tf32(x, w, scale, x2, y2) -> torch.Tensor:
+    """K9/K10 as the kernel computes it (``csrc/fused.cuh`` with
+    ``ResidOp``): the residual X2ᵤY2ᵤᵀ in 3xTF32, the cache value exact,
+    W' = W ⊙ (R + 1) in fp32 and rounded once (to bf16 for bf16 x; into
+    TF32 halves for a 3xTF32 contraction with fp32 x), the scale on the
+    fp32 result. Shapes as :func:`cache_residual_ref`; returns fp32."""
+    wu = w.float() * (_tf32_product(x2.float(), y2.float(), 3) + 1.0)
+    if x.dtype == torch.bfloat16:
+        y = x.float() @ wu.to(torch.bfloat16).float()
+    else:
+        y = _tf32_product(x.float(), wu.mT, 3)
+    return y if scale is None else y * scale.reshape(1, -1).float()
+
+
 def fedpara_matmul_ref(x, x1, y1, x2, y2, *, kind: str = "fedpara",
                        out_dtype=None) -> torch.Tensor:
     """y = x @ W with W = f1(X1Y1ᵀ)⊙f2(X2Y2ᵀ); x: (B, m) -> y: (B, n), or

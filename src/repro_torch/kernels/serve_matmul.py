@@ -3,16 +3,23 @@ and the Hadamard-Gram decode.
 
 ``w8_matmul``
     y = (x @ W_q) · s for a pre-composed cache stored int8 (or fp16,
-    ``scale=None``). The cache tile is widened in shared memory only;
-    the per-column scale is applied once to the fp32 accumulator.
-    Replaces ``repro/kernels/serve_matmul.py:_w8_kernel`` (K8).
+    ``scale=None``). The cache tile is widened on chip only; the
+    per-column scale is applied once to the fp32 accumulator. Decode
+    widths (rows <= 32) take a CUDA-core kernel bound by the cache's
+    bytes, prefill widths a tensor-core GEMM. Replaces
+    ``repro/kernels/serve_matmul.py:_w8_kernel`` (K8).
 
 ``cache_residual_matmul``
     y = (x @ (W_q ⊙ (X2ᵤY2ᵤᵀ + 1))) · s — pFedPara serving against the
-    shared W1 cache; the residual tile is composed on chip. x (U, t, m)
-    with per-user factors (U, m, r) / (U, n, r); a 2-D x is one user
-    (U = 1). Replaces ``_resid_kernel`` (K9) and ``_resid_kernel_users``
-    (K10): on Hopper both are one kernel with the user on grid axis z.
+    shared W1 cache; the residual tile is composed on chip, on the
+    tensor cores at fp32 accuracy (3xTF32). x (U, t, m) with per-user
+    factors (U, m, r) / (U, n, r); a 2-D x is one user (U = 1).
+    Replaces ``_resid_kernel`` (K9) and ``_resid_kernel_users`` (K10):
+    on Hopper both are one kernel with the user on grid axis z.
+
+A launch too small to fill the card splits the contraction axis across
+blocks; the wrapper then allocates the fp32 workspace of the partial
+sums, which a second pass adds in a fixed order.
 
 ``fedpara_gram_decode``
     The decode-batch fused path through the Gram identity. The
@@ -26,6 +33,7 @@ versions and counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,9 +44,11 @@ W_CODES = {torch.int8: 0, torch.float16: 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "repro_cache_residual": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _LL, _LL, _I, _I, _P],
+    "repro_w8_splits": [_I] * 6,
+    "repro_w8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "repro_cache_residual_splits": [_I] * 8,
+    "repro_cache_residual": [_P] * 7 + [_I] * 5 + [_LL, _LL] + [_I] * 3 + [_P],
+    "repro_serve_smem_bytes": [_I] * 5,
 }
 
 
@@ -77,6 +87,35 @@ def _scale_vec(scale, n: int, device):
     return s.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _splits(symbol: str, *shape: int) -> int:
+    """A launch's split count from the CUDA source's own query (an
+    occupancy computation), once per shape: serving calls the same few
+    shapes every layer and step, and decode is bound by host time."""
+    return _cfn(symbol)(*shape)
+
+
+def _workspace(splits: int, shape, device):
+    """The fp32 partial sums of a launch split ``splits`` ways (None when
+    it is not split)."""
+    if splits <= 1:
+        return None
+    return torch.empty((splits, *shape), dtype=torch.float32, device=device)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def smem_bytes(kernel: str, rows: int, r: int, x_dtype, w_dtype) -> int:
+    """The dynamic shared memory of one block that ``kernel`` ("w8" for
+    K8, "resid" for K9/K10) launches at ``rows`` activation rows (per
+    user) and rank ``r``, from the CUDA source's own launch table."""
+    return _cfn("repro_serve_smem_bytes")(
+        {"w8": 0, "resid": 1}[kernel], rows, r, X_CODES[x_dtype],
+        W_CODES[w_dtype])
+
+
 def w8_matmul(x: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
     """Launch K8: x (B, m) fp32/bf16, W (m, n) int8/fp16 contiguous,
     scale (n,) or (1, n) fp32 or None. Returns (B, n) in x's dtype."""
@@ -90,10 +129,15 @@ def w8_matmul(x: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
     n = w.shape[1]
     s = _scale_vec(scale, n, x.device)
     y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    xcode, wcode = _x_code(xc), W_CODES[w.dtype]
     with torch.cuda.device(x.device):
+        splits = _splits("repro_w8_splits", rows, m, n, xcode, wcode,
+                         _sms(x.device))
+        ws = _workspace(splits, (rows, n), x.device)
         err = _cfn("repro_w8_matmul")(
             xc.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-            y.data_ptr(), rows, m, n, _x_code(xc), W_CODES[w.dtype],
+            y.data_ptr(), None if ws is None else ws.data_ptr(), rows, m, n,
+            xcode, wcode, splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_status(err, "w8_matmul")
     return y
@@ -134,11 +178,16 @@ def cache_residual_matmul(x: torch.Tensor, w: torch.Tensor, scale,
     xc = x.contiguous()
     s = _scale_vec(scale, n, x.device)
     y = torch.empty((users, t, n), dtype=x.dtype, device=x.device)
+    xcode, wcode = _x_code(xc), W_CODES[w.dtype]
     with torch.cuda.device(x.device):
+        splits = _splits("repro_cache_residual_splits", users, t, m, n, r,
+                         xcode, wcode, _sms(x.device))
+        ws = _workspace(splits, (users, t, n), x.device)
         err = _cfn("repro_cache_residual")(
             xc.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-            x2.data_ptr(), y2.data_ptr(), y.data_ptr(), users, t, m, n, r,
-            x2.stride(0), y2.stride(0), _x_code(xc), W_CODES[w.dtype],
+            x2.data_ptr(), y2.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), users, t, m, n, r,
+            x2.stride(0), y2.stride(0), xcode, wcode, splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_status(err, "cache_residual_matmul")
     return y[0] if single else y

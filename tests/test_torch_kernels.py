@@ -225,3 +225,99 @@ def test_bounds_price_fp32_products_at_the_3xtf32_rate():
         0.0, f32=cs.compose_ops(m, n, r))[0]) == pytest.approx(0.917, rel=0.01)
     # elementwise fp32 work (K7's weighted sum) keeps the CUDA-core rate
     assert cs.bound_ms(0.0, elem=67e9)[0] == pytest.approx(1.0)
+
+
+# ------------------------------------- the serve kernels' precision
+
+def test_tf32_round_is_exact_on_the_cache_types():
+    """Every int8 value and every finite fp16 value is a TF32 value, so
+    K8's fp32 path takes the widened cache as it is (two TF32 passes on
+    x, none on W)."""
+    from repro_torch.kernels import ref
+
+    i8 = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8).float()
+    assert torch.equal(ref.tf32_round(i8), i8)
+    bits = torch.arange(0, 1 << 16, dtype=torch.int32)
+    finite = (bits & 0x7C00) != 0x7C00
+    f16 = bits[finite].to(torch.int16).view(torch.float16).float()
+    assert f16.numel() == 63488
+    assert torch.equal(ref.tf32_round(f16), f16)
+
+
+@pytest.mark.parametrize("cache", ["int8", "fp16"])
+def test_w8_two_tf32_passes_keep_fp32_accuracy(cache):
+    """K8's fp32 path (``ref.w8_matmul_tf32``): at m = 4096 the two
+    passes x_hi·W + x_lo·W stay within 5e-6 of an fp64 product, relative
+    to the output's largest value; x_hi·W alone is at least 10x off."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(7 if cache == "int8" else 8)
+    m, n = 4096, 64
+    x = torch.from_numpy(rng.standard_normal((8, m)).astype(np.float32))
+    if cache == "int8":
+        w = torch.from_numpy(rng.integers(-127, 128, (m, n)).astype(np.int8))
+        s = torch.from_numpy((1e-3 + 1e-2 * rng.random(n)).astype(np.float32))
+        want = (x.double() @ w.double()) * s.double()
+    else:
+        w = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float16))
+        s = None
+        want = x.double() @ w.double()
+    scale = float(want.abs().max())
+    err2 = float((ref.w8_matmul_tf32(x, w, s, passes=2).double() - want)
+                 .abs().max()) / scale
+    err1 = float((ref.w8_matmul_tf32(x, w, s, passes=1).double() - want)
+                 .abs().max()) / scale
+    assert err2 < 5e-6, err2
+    assert err1 >= 10 * err2, (err1, err2)
+
+
+@pytest.mark.parametrize("r", [160, 70, 211])
+def test_cache_residual_tf32_keeps_fp32_accuracy(r):
+    """K9/K10's arithmetic (``ref.cache_residual_tf32``: the residual in
+    3xTF32, the cache exact, +1, W' split into TF32 halves for a 3xTF32
+    contraction with fp32 x) stays within 2e-6 of fp64 at qwen3-8b's
+    ranks."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(r)
+    U, t, m, n = 2, 5, 256, 64
+    x = torch.from_numpy(rng.standard_normal((U, t, m)).astype(np.float32))
+    w1 = (rng.standard_normal((m, r)) @ rng.standard_normal((n, r)).T) / r
+    w = torch.from_numpy(w1.astype(np.float16))
+    x2, y2 = (torch.from_numpy((rng.standard_normal((U, d, r)) / np.sqrt(r))
+                               .astype(np.float32)) for d in (m, n))
+    want = torch.einsum("utm,umn->utn", x.double(), w.double()[None]
+                        * (x2.double() @ y2.double().mT + 1.0))
+    got = ref.cache_residual_tf32(x, w, None, x2, y2)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err < 2e-6, err
+
+
+@pytest.mark.parametrize("U,t,m,n,r", [(3, 5, 100, 72, 5), (2, 1, 130, 97, 37),
+                                       (1, 17, 64, 300, 211)])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp16"])
+def test_cache_residual_strided_users_match_reference_kernel(U, t, m, n, r,
+                                                             quant):
+    """Ragged users, rows, m, n and r, each user's factor slab taken from
+    a strided view (user stride > m·r, as the serve arena's layer-stacked
+    slabs are): the CPU path and the kernel's host twin
+    (``ref.cache_residual_tf32``) against the reference kernel in
+    interpret mode, at the file's tolerance."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(U * 100 + t + r)
+    x = rng.standard_normal((U, t, m)).astype(np.float32)
+    w1 = (0.2 * rng.standard_normal((m, r))) @ (0.2 * rng.standard_normal((n, r))).T
+    wq, scale = _cache(w1.astype(np.float32), quant)
+    big_x2 = (0.2 * rng.standard_normal((U, 2, m, r))).astype(np.float32)
+    big_y2 = (0.2 * rng.standard_normal((U, 3, n, r))).astype(np.float32)
+    ux2, uy2 = _t(big_x2)[:, 1], _t(big_y2)[:, 2]
+    assert ux2.stride(0) > m * r and uy2.stride(0) > n * r
+    want = np.asarray(jops.cache_residual_matmul(
+        x, wq, scale, big_x2[:, 1], big_y2[:, 2], interpret=True,
+        out_dtype=jnp.float32))
+    s = None if scale is None else _t(scale)
+    got = ops.cache_residual_matmul(_t(x), _t(wq), s, ux2, uy2)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    twin = ref.cache_residual_tf32(_t(x), _t(wq), s, ux2, uy2)
+    np.testing.assert_allclose(twin.numpy(), want, **TOL)
