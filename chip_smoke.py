@@ -10,9 +10,9 @@ raises, so the script exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once); print the build time, the
-   registers and spills ``-Xptxas -v`` reports for the fused and serve
-   kernels, the serve kernels' dynamic shared memory, and the card's
-   name and power limit;
+   registers and spills ``-Xptxas -v`` reports for the fused, serve and
+   factor-gradient kernels, the serve kernels' and K4's dynamic shared
+   memory, and the card's name and power limit;
 2. every kernel against its plain version at every full-width qwen3-8b
    shape, bf16 at 4 rows (decode) and 512 rows (prefill; the backward
    kernels K3 and K4 at 512 rows only); the fp32 builds that the other
@@ -30,8 +30,13 @@ raises, so the script exits non-zero:
    widened stack as the yardstick), a ragged length, an unaligned leaf,
    zero coefficients and the MLP's streaming leaves; K8's prefill
    kernel at 33, 100 and 517 rows with ragged m and n (int8 and fp16
-   caches, bf16 and fp32 activations) and K10 at 1, 17 and 129 rows per
-   user with strided user slabs (fp32 activations); the compose
+   caches, bf16 and fp32 activations), K8's decode kernel at 1, 4, 17
+   and 32 rows with n = 1000 and m = 4096 or 1001 (both caches, both
+   activation types), K4 at batches of 1, 33 and 100 rows, ragged own
+   and other axes, ranks 1, 7 and 300 and 1, 3 and 8 clients (bf16 and
+   fp32, all kinds), two launches of K4 (2-D and with clients) and of
+   K8's split decode giving the same bits, and K10 at 1, 17 and 129 rows
+   per user with strided user slabs (fp32 activations); the compose
    kernels K5 (W of one projection, fp32, fp16 and bf16, all kinds) and
    K6 (the projection stacked over 2, 4 and, to fp16 W, 36 layers, the
    depths of phases 10 and 4) at the same shapes, and at the reference
@@ -49,7 +54,8 @@ raises, so the script exits non-zero:
    host (plain versions), same weights;
 7. one full-width qwen3-8b layer's 7 projections, 512 rows, forward and
    backward through ``FedParaMatmul`` (K1, K3, K4) against plain
-   autograd (materialize W, then matmul), fp32;
+   autograd (materialize W, then matmul), fp32, with K4's share of the
+   step's device time;
 8. the FL training path: ``launch/train.py --mode fl --model mlp
    --rounds 3 --clients 20 --use-kernels --engine sequential`` on the
    card against the same run on the host, from the same initial weights;
@@ -154,7 +160,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 class Clock:
     """Median device time of a callable: CUDA events around each run,
     the 50 MB L2 flushed before each (the main path finds its weights
-    cold: a layer's caches are read once per pass)."""
+    cold: a layer's caches are read once per pass). A short spin on the
+    card (``HEAD_CYCLES``) sits between the flush and the first event, so
+    that the host has queued the callable's launches before the card
+    reaches them: the time is the card's, not the host's enqueue."""
+
+    HEAD_CYCLES = 2_000_000      # about 1 ms at the H100's clock
 
     def __init__(self, reps: int):
         self.reps = reps
@@ -167,6 +178,7 @@ class Clock:
         evs = []
         for _ in range(reps or self.reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.HEAD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -265,12 +277,15 @@ def phase_build():
                     if "registers" in ln or "spill" in ln})
     fused = ptxas_entries(str(built.get("fedpara_matmul", {}).get("log", "")))
     serve = ptxas_entries(str(built.get("serve_matmul", {}).get("log", "")))
+    grad = ptxas_entries(str(built.get("fedpara_grad", {}).get("log", "")))
     for name in build.SOURCES:
         build.library(name)
     serve_smem = _serve_smem()
+    grad_smem = _grad_smem()
     say("build", seconds=round(secs, 3), built=sorted(built),
         ptxas=ptxas[:40], fedpara_matmul_ptxas=fused,
-        serve_matmul_ptxas=serve, serve_smem_bytes=serve_smem)
+        serve_matmul_ptxas=serve, serve_smem_bytes=serve_smem,
+        fedpara_grad_ptxas=grad, fedpara_grad_smem_bytes=grad_smem)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -280,7 +295,9 @@ def phase_build():
     print(card, flush=True)
     return card, {"seconds": secs, "built": sorted(built), "ptxas": ptxas,
                   "fedpara_matmul_ptxas": fused, "serve_matmul_ptxas": serve,
-                  "serve_smem_bytes": serve_smem}
+                  "serve_smem_bytes": serve_smem,
+                  "fedpara_grad_ptxas": grad,
+                  "fedpara_grad_smem_bytes": grad_smem}
 
 
 def _serve_smem() -> dict:
@@ -301,6 +318,17 @@ def _serve_smem() -> dict:
                 out[f"resid t={t} r=211 {xn} {wn}"] = sm.smem_bytes(
                     "resid", t, 211, xd, wd)
     return out
+
+
+def _grad_smem() -> dict:
+    """Dynamic shared memory per block of K4 (both forms) at the ranks
+    the main path and phase 2 give it: qwen3-8b's, the MLP's, 300 and
+    the large-rank form's 505, bf16 and fp32 activations."""
+    from repro_torch.kernels import fedpara_grad as fg
+
+    return {f"r={r} {n}": fg.smem_bytes(r, dt)
+            for r in (160, 70, 211, 300, 505, 40, 4)
+            for dt, n in ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))}
 
 
 # ------------------------------------------------------------ phase 2
@@ -496,6 +524,9 @@ def phase_kernels(clock: Clock, quick: bool):
     _agg_cases(record, gen, quick)
     _compose_ragged_cases(record, gen)
     _serve_ragged_cases(record, gen)
+    _decode_ragged_cases(record, gen)
+    _dfactors_edge_cases(record, gen)
+    cases["repeat_bitwise"] = [_repeat_checks(gen)]
     if quick:
         return cases
     # ragged fp32 shapes: every edge masked, tighter tolerance
@@ -674,6 +705,7 @@ def _backward_cases(record, gen, pname, m, n, r, fac):
             timed = kind == "fedpara" and dt == torch.bfloat16
             wt = (ref.fedpara_compose_ref(*fac, kind=kind, out_dtype=dt)
                   if timed else None)
+            # K4 is timed in fp32 too: the precision phase 7 trains in
             fo = fedpara_ops(rows, m, n, r, kind, x_bits=bits)
             record("fedpara_dx", f"{tag}{tdt} {kind}",
                    lambda kind=kind: ops.fedpara_dx(dy, *fac, kind=kind),
@@ -689,7 +721,126 @@ def _backward_cases(record, gen, pname, m, n, r, fac):
                    lambda kind=kind: _both_sides(ref.fedpara_dfactors_ref, x,
                                                  dy, fac, kind),
                    None, tol, io_dt + 16 * r * (m + n), f16=do["f16"],
-                   f32=do["f32"], timed=timed)
+                   f32=do["f32"], timed=kind == "fedpara")
+
+
+def _dfactors_edge_cases(record, gen):
+    """K4 at the edges of its tiling, both forms, both sides, all kinds,
+    bf16 (1e-2) and fp32 (1e-5): batches of 1, 33 and 100 rows; own and
+    other axes that are not multiples of its 32-row and 32-column tiles;
+    ranks 1, 7 and 300 (above 256: 16 own rows a block), 337 and 505
+    (above 336: the factors read from global memory) and 1100 (three
+    rank blocks); then 1, 3 and 8 clients. Last, the gate projection at
+    r = 505 (γ = 0.3 at qwen3-8b's widths), 512 rows of bf16, timed."""
+    from repro_torch.kernels import ops, ref
+
+    cases = [(0, 1, 130, 97, 5), (0, 33, 1000, 1000, 7), (0, 100, 300, 200, 300),
+             (0, 33, 520, 300, 1), (1, 33, 300, 200, 37), (3, 100, 130, 97, 7),
+             (8, 1, 520, 300, 300), (0, 33, 300, 200, 337), (0, 100, 130, 97, 505),
+             (3, 33, 130, 97, 505), (0, 17, 100, 70, 1100)]
+    for C, B, m, n, r in cases:
+        fac = (_client_factors(gen, C, m, n, r) if C else _factors(gen, m, n, r))
+        lead = (C,) if C else ()
+        kernel = "fedpara_dfactors" + ("_clients" if C else "")
+        for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            x = torch.randn((*lead, B, m), generator=gen, device="cuda").to(dt)
+            dy = torch.randn((*lead, B, n), generator=gen, device="cuda").to(dt)
+            for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+                record(kernel, f"edge C={C} B={B} {m}x{n} r={r} {_DT_NAME[dt]} "
+                       f"{kind}",
+                       lambda x=x, dy=dy, kind=kind: _both_sides(
+                           ops.fedpara_dfactors, x, dy, fac, kind),
+                       lambda x=x, dy=dy, kind=kind: _both_sides(
+                           ref.fedpara_dfactors_ref, x, dy, fac, kind),
+                       None, tol, 0, timed=False)
+    m, n, _ = SHAPES["w_gate"]
+    r, rows = 505, 512
+    fac = _factors(gen, m, n, r)
+    x = torch.randn((rows, m), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((rows, n), generator=gen, device="cuda").to(torch.bfloat16)
+    do = dfactors_ops(rows, m, n, r)
+    record("fedpara_dfactors", f"edge w_gate {m}x{n} r={r} rows={rows} fedpara",
+           lambda: _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara"),
+           lambda: _both_sides(ref.fedpara_dfactors_ref, x, dy, fac, "fedpara"),
+           None, 1e-2, rows * (m + n) * 2 + 16 * r * (m + n), f16=do["f16"],
+           f32=do["f32"])
+
+
+def _decode_ragged_cases(record, gen):
+    """K8's decode kernel at 1, 4, 17 and 32 rows, n = 1000 (not a
+    multiple of its 128-column blocks nor of an int8 cache's 16-byte
+    vectors) and m = 4096 or 1001 (x's rows not 16-byte aligned): int8
+    and fp16 caches, bf16 (1e-2) and fp32 (1e-5) activations."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn.layers import quantize_int8
+
+    for m in (4096, 1001):
+        w = torch.randn((m, 1000), generator=gen, device="cuda")
+        q = quantize_int8(w)
+        caches = (("int8", q["w_q"], q["scale"]), ("fp16", w.half(), None))
+        for rows in (1, 4, 17, 32):
+            for dt, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+                x = torch.randn((rows, m), generator=gen, device="cuda").to(dt)
+                for cname, wc, sc in caches:
+                    record("w8_matmul", f"decode {rows}x{m}x1000 "
+                           f"{_DT_NAME[dt]} {cname}",
+                           lambda x=x, wc=wc, sc=sc: ops.w8_matmul(x, wc, sc),
+                           lambda x=x, wc=wc, sc=sc: ref.w8_matmul_ref(x, wc, sc),
+                           None, tol, 0, timed=False)
+
+
+def _repeat_checks(gen) -> dict:
+    """Two launches give the same bits: K4 (2-D, a side whose sweep is
+    split over blocks, with a client axis, and the large-rank form at
+    r = 1100) and K8's decode kernel
+    (split over blocks), each at full width; the split counts are
+    reported beside."""
+    from repro_torch.kernels import fedpara_grad as fg
+    from repro_torch.kernels import ops, serve_matmul as sm
+    from repro_torch.nn.layers import quantize_int8
+
+    out = {}
+    m, n, r = SHAPES["wk"]
+    fac = _factors(gen, m, n, r)
+    x = torch.randn((512, m), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((512, n), generator=gen, device="cuda").to(torch.bfloat16)
+    a = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
+    b = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
+    out["fedpara_dfactors"] = all(torch.equal(u, v) for u, v in zip(a, b))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["fedpara_dfactors_splits_side_y"] = fg._splits(
+        1, n, m, r, fg.X_CODES[torch.bfloat16], sms)
+    cfac = _client_factors(gen, CLIENTS, m, n, r)
+    x = torch.randn((CLIENTS, CLIENT_ROWS, m), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dy = torch.randn((CLIENTS, CLIENT_ROWS, n), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    a = _both_sides(ops.fedpara_dfactors, x, dy, cfac, "fedpara")
+    b = _both_sides(ops.fedpara_dfactors, x, dy, cfac, "fedpara")
+    out["fedpara_dfactors_clients"] = all(torch.equal(u, v)
+                                          for u, v in zip(a, b))
+    # the large-rank form: three rank blocks, fp32
+    fac = _factors(gen, 130, 97, 1100)
+    x = torch.randn((33, 130), generator=gen, device="cuda")
+    dy = torch.randn((33, 97), generator=gen, device="cuda")
+    a = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
+    b = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
+    out["fedpara_dfactors_r1100"] = all(torch.equal(u, v) for u, v in zip(a, b))
+    q = quantize_int8(torch.randn((m, n), generator=gen, device="cuda"))
+    xd = torch.randn((4, m), generator=gen, device="cuda").to(torch.bfloat16)
+    out["w8_matmul_decode"] = torch.equal(ops.w8_matmul(xd, q["w_q"], q["scale"]),
+                                          ops.w8_matmul(xd, q["w_q"], q["scale"]))
+    out["w8_matmul_decode_splits"] = sm._splits(
+        "repro_w8_splits", 4, m, n, sm.X_CODES[torch.bfloat16],
+        sm.W_CODES[torch.int8], sms)
+    torch.cuda.synchronize()
+    check(out["w8_matmul_decode_splits"] > 1
+          and out["fedpara_dfactors_splits_side_y"] > 1,
+          f"the repeat checks must cover split launches: {out}")
+    bad = [k for k, v in out.items() if v is False]
+    check(not bad, f"two launches gave different bits: {bad}")
+    say("repeat_bitwise", **out)
+    return out
 
 
 def _client_factors(gen, C, m, n, r, kind="fedpara"):
@@ -1093,6 +1244,7 @@ def phase_layer_grad(measurements):
 
     gen = torch.Generator(device="cuda").manual_seed(321)
     errs, fused_ms, plain_ms = {}, 0.0, 0.0
+    steps = []
     for pname, (m, n, r) in SHAPES.items():
         fac = [t.requires_grad_() for t in _factors(gen, m, n, r)]
         x = torch.randn((512, m), generator=gen, device="cuda"
@@ -1111,6 +1263,7 @@ def phase_layer_grad(measurements):
 
         got, want = fused(), plain()
         torch.cuda.synchronize()
+        steps.append(fused)
         errs[pname] = [rel_err(g, w) for g, w in zip(got, want)]
         check(max(errs[pname]) < 1e-4,
               f"layer grads {pname}: rel errs {errs[pname]}")
@@ -1126,9 +1279,34 @@ def phase_layer_grad(measurements):
             else:
                 plain_ms += a.elapsed_time(b)
     out = {"rel_errs": errs, "fused_fwd_bwd_ms": fused_ms,
-           "plain_autograd_ms": plain_ms, "rows": 512, "dtype": "fp32"}
+           "plain_autograd_ms": plain_ms, "rows": 512, "dtype": "fp32",
+           "k4_share": _k4_share(steps)}
     say("layer_grad", **out)
     measurements["layer_grad"] = out
+
+
+def _k4_share(steps) -> dict:
+    """K4's share of the layer's training step: the device time of its
+    launches (the factor-gradient kernel and its split sum) against all
+    device time, over one pass of the 7 projections' steps under
+    ``torch.profiler``."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in steps:
+            fn()
+        torch.cuda.synchronize()
+    k4 = total = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total += ev.device_time_total
+            if "dfactors" in ev.name or "sum_splits" in ev.name:
+                k4 += ev.device_time_total
+    if total <= 0:
+        return {"k4_device_ms": "not measured", "share": "not measured"}
+    return {"k4_device_ms": k4 / 1e3, "device_ms": total / 1e3,
+            "share": k4 / total}
 
 
 def _mlp_init():
@@ -1502,6 +1680,8 @@ def _layer_sums(cases):
     ``bound_by`` is the side that bounds most of the summed time."""
     out = {}
     for kernel, rows in cases.items():
+        if kernel not in SOURCES:    # checks that are not a kernel's cases
+            continue
         per = {}
         for row in rows:
             pname, _, _, key = row["case"].split(" ", 3)

@@ -537,6 +537,7 @@ reduce_splits(const float* __restrict__ ws, XT* __restrict__ y,
   if (total % 4 != 0) {
     for (size_t i = first; i < total; i += stride) {
       float v = 0.f;
+#pragma unroll 8
       for (int p = 0; p < splits; ++p) v += ws[p * total + i];
       if (scale != nullptr) v *= scale[i % n];
       y[i] = from_f<XT>(v);
@@ -545,6 +546,7 @@ reduce_splits(const float* __restrict__ ws, XT* __restrict__ y,
   }
   for (size_t i = 4 * first; i < total; i += 4 * stride) {
     float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
     for (int p = 0; p < splits; ++p) {
       const float4 w = *reinterpret_cast<const float4*>(ws + p * total + i);
       v[0] += w.x;

@@ -43,6 +43,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// The same 16-byte copy asking L2 to fetch the 256-byte block around
+// it from device memory (a prefetch-size hint for streams read along a
+// row by neighbouring blocks).
+__device__ __forceinline__ void cp_async16_l2(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 template <int V>   // V floats
 __device__ __forceinline__ void cp_async_f(float* dst, const float* src, bool valid) {
   if constexpr (V == 4) cp_async16(dst, src, valid);

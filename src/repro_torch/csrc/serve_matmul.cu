@@ -9,10 +9,31 @@
 // K8, y = (x · W) · s with W int8 (per-column scale s) or fp16.
 //   * At decode (rows <= 32) it is bound by the cache's bytes: every
 //     weight is read once and used for a few rows (a 4096 x 12288 int8
-//     cache is 50 MB, 15 us at 3.35 TB/s). It runs on tiles.cuh's
-//     CUDA-core driver (Skinny: 32 output columns, steps of 128 rows of
-//     m with 16-byte loads, split over 8 warps), small blocks so that
-//     many stay resident and keep loads in flight.
+//     cache is 50 MB, 15 us at 3.35 TB/s). w8_decode_kernel keeps them
+//     in flight: a block of 8 warps owns 128 columns and up to 16 rows
+//     (8 at fp32) and splits m (16 rows a warp step) across its warps
+//     and across blocks (the split count fills two block slots per SM in
+//     whole waves); every thread fills its own slots of a 3-6 stage
+//     cp.async ring (16-byte vectors along n, asking L2 for 256-byte
+//     blocks) and reads only those, so no barrier stands in the loop.
+//     The product is the transposed one, yᵀ = Wᵀ xᵀ ("swap AB", x as the
+//     MMA's 8-column operand): a thread's vectors hold exactly the
+//     cache values of its own A fragments, widened and paired in
+//     registers (int8 by byte permutes and fp32 adds; fp16 rounded to
+//     bf16), mma.sync m16n8k16 for bf16 x and two TF32 passes of
+//     m16n8k8 for fp32 x (x_hi·W + x_lo·W, W exact; each step summed in
+//     fresh registers). The 8 warps' sums are added in a fixed order
+//     through shared memory. The splits' partial sums go to an fp32
+//     workspace; the last block of an output tile to arrive (an integer
+//     counter per tile) adds them in split order with the scale and
+//     resets the counter: one launch per call, the same bits every run,
+//     and the workspace and counters are the caller's, kept between
+//     calls (decode is bound by host time). The MMAs, not FMAs, carry
+//     the few rows: at 4 rows a step is 8 MMAs a thread against 64 FMAs,
+//     and the widening, which both need, is the CUDA cores' share of the
+//     work. What holds it near 1.1 TB/s (PERF.md section 6) was not
+//     found: wider row segments per warp, more or fewer ring stages and
+//     x by plain loads were each slower on the card.
 //   * At prefill (rows > 32) each weight feeds every row, and it is
 //     bound by operations: 2·rows·m·n on the tensor cores (0.200 ms per
 //     qwen3-8b layer at 512 rows and 989 TFLOP/s). w8_wide_kernel is a
@@ -68,7 +89,8 @@
 //   split m (t = 1 at n = 1024). Later work: wgmma for the compose.
 //
 // Registers and spills, nvcc -Xptxas -v for sm_90a: K8 prefill bf16 217
-// (fp16 cache) / 214 (int8), fp32 191 / 198; K8 decode 97-118; K9/K10
+// (fp16 cache) / 214 (int8), fp32 191 / 198; K8 decode: chip_smoke.py's
+// phase 1 prints them (compiled for two blocks an SM); K9/K10
 // bf16 88 (128 rows a block), 126 (512), 64 (64 rows, two blocks an SM),
 // fp32 120 (128 rows) and 64 with 8 bytes spilled (64 rows); no other
 // spills. Dynamic shared memory: repro_serve_smem_bytes.
@@ -81,27 +103,404 @@ using tiles::W_I8;
 
 namespace {
 
+// ------------------------------------------------------------ K8, both widths
+
+// int8 widened exactly and without conversion instructions (which run
+// at a quarter of the FMA rate or less): byte b, biased to u = b ^ 0x80,
+// placed under the exponent of 2^23 is the fp32 value 2^23 + u;
+// subtracting 2^23 + 128 leaves b. i8_to_f32 widens byte k of a biased
+// word to fp32; i8x4_to_bf16x4 widens a word to two bf16 pairs (b has at
+// most 8 significant bits, so its fp32 pattern's top half is its bf16
+// pattern).
+__device__ __forceinline__ uint32_t i8_to_f32(uint32_t biased, int k) {
+  return __float_as_uint(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + k)) -
+                         8388736.f);
+}
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) f[k] = i8_to_f32(u, k);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
 // ------------------------------------------------------------ K8, decode
 
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(tiles::NT)
-w8_skinny_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
-                 const float* __restrict__ scale, XT* __restrict__ y, int rows, int m, int n) {
-  extern __shared__ __align__(16) float smem[];
-  tiles::tiled_matmul<XT, WT>(x, w, y, scale, rows, m, n, smem);
+namespace w8d {
+
+constexpr int NT = 256;       // 8 warps
+constexpr int WARPS = NT / 32;
+constexpr int KS = 16;        // rows of m per warp step
+constexpr int MAX_ROWS = 32;  // activation rows up to which K8 takes this kernel
+constexpr int RING_BYTES = 110 * 1024;   // two blocks an SM
+
+constexpr int COLS = 16;      // cache columns a thread holds (two per MMA tile)
+constexpr int BN = 8 * COLS;  // columns per block: 8 lane groups g
+
+// Activation rows per block: 8 per n8 tile of the MMA, two tiles for
+// bf16, one for fp32 (whose per-step partial sums double the
+// accumulators); more rows take more row blocks.
+template <typename XT> __host__ __device__ constexpr int max_nq() { return sizeof(XT) == 2 ? 2 : 1; }
+// Bytes one thread owns in a stage: 4 rows of m x 16 columns of the
+// cache (16-byte vectors along n) and its x fragment words (2 per n8
+// tile: 4 bytes of bf16 pairs, 8 of fp32 pairs). A stage stores vector
+// v of thread t at [v][t] (and x word j at [j][t] after the vectors),
+// so a warp's 16-byte reads are conflict-free.
+template <typename XT, typename WT, int NQ> __host__ __device__ constexpr int slot_bytes() {
+  return 4 * COLS * (int)sizeof(WT) + 2 * NQ * (sizeof(XT) == 2 ? 4 : 8);
+}
+// Ring stages: as many as two blocks an SM leave room for, 3 to 6 (each
+// at least 16 KB of cache per block).
+template <typename XT, typename WT, int NQ> __host__ __device__ constexpr int stages() {
+  return RING_BYTES / (NT * slot_bytes<XT, WT, NQ>()) < 3   ? 3
+         : RING_BYTES / (NT * slot_bytes<XT, WT, NQ>()) > 6 ? 6
+                                                            : RING_BYTES / (NT * slot_bytes<XT, WT, NQ>());
+}
+template <typename XT, typename WT, int NQ> constexpr size_t smem_bytes() {
+  const size_t ring = (size_t)stages<XT, WT, NQ>() * NT * slot_bytes<XT, WT, NQ>();
+  const size_t red = (size_t)WARPS * 32 * 2 * COLS * NQ * sizeof(float);   // the warps' sums
+  return ring > red ? ring : red;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) { return tiles::word(v, i); }
+
+// A bf16 pair from two fp16 values, each rounded to bf16 as the
+// reference widens the cache to x's dtype.
+__device__ __forceinline__ uint32_t h2_to_bf2(uint32_t h) {
+  const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(*reinterpret_cast<const __half2*>(&h)));
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Grid: (⌈n/BN⌉, row blocks x splits). Block (bx, by) computes
+// y[row0 : row0 + 8 NQ, n0 : n0 + BN] over its split's steps of m (16
+// rows each): into y (scaled) when splits == 1, else into ws[split]
+// (fp32, unscaled). Warp w takes the split's steps w, w + 8, ...
+//
+// The product is the transposed one, yᵀ = Wᵀ xᵀ: the cache is the MMA's
+// A operand (M = 16 columns of n), x its B operand (N = 8 rows), m the
+// reduction. A thread (g = lane / 4, c = lane % 4) reads, in each step,
+// rows 2c, 2c+1, 2c+8, 2c+9 of m at its 16 columns n0 + 16g.. : the
+// MMA's k indices 2c, 2c+1 (and 2c+8, 2c+9) are those rows, and its M
+// rows g, g+8 of tile t are the thread's columns 2t and 2t+1. So each
+// thread widens and pairs exactly the values its own A fragments hold,
+// straight from its own 16-byte vectors, and its B fragments are x
+// words at the same rows of m. Every thread copies its own vectors into
+// its own slot of a cp.async ring and reads only that slot: no barrier
+// until the warps' partial sums are added at the end.
+template <typename XT, typename WT, int NQ>
+__global__ void __launch_bounds__(NT, 2)
+w8_decode_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                 const float* __restrict__ scale, XT* __restrict__ y, float* __restrict__ ws,
+                 int* __restrict__ counters, int rows, int m, int n, int splits) {
+  constexpr bool BF16 = sizeof(XT) == 2;
+  constexpr bool I8 = sizeof(WT) == 1;
+  constexpr int RB = 8 * NQ;                 // activation rows per block
+  constexpr int T = COLS / 2;                // MMA tiles a thread's columns fill
+  constexpr int VPR = COLS * (int)sizeof(WT) / 16;   // cache vectors per row of m
+  constexpr int WV = 4 * VPR;                // cache vectors per thread and step
+  constexpr int XB = BF16 ? 4 : 8;           // bytes of one x fragment word
+  constexpr int ST = stages<XT, WT, NQ>();
+  constexpr int SLOT = slot_bytes<XT, WT, NQ>();
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int ncol = blockIdx.x * BN + COLS * g;  // this thread's first column
+  const int row_blocks = (rows + RB - 1) / RB;
+  const int rb = blockIdx.y % row_blocks, split = blockIdx.y / row_blocks;
+  const int row0 = rb * RB, nr = min(RB, rows - row0);
+  const int steps = (m + KS - 1) / KS;
+  const int s0 = (int)((long long)steps * split / splits);
+  const int s1 = (int)((long long)steps * (split + 1) / splits);
+  const int mine = s1 - s0 > warp ? (s1 - s0 - warp + WARPS - 1) / WARPS : 0;
+  x += (size_t)row0 * m;
+  const bool wvec = n % (16 / (int)sizeof(WT)) == 0 && tiles::aligned16(w);
+  const bool xvec = m % 2 == 0 && reinterpret_cast<uintptr_t>(x) % XB == 0;
+  // this thread's cache vector vi and x word j in stage st
+  auto wslot = [&](int st, int vi) {
+    return reinterpret_cast<uint4*>(smem + (size_t)st * NT * SLOT) + vi * NT + tid;
+  };
+  auto xslot = [&](int st, int j) {
+    return smem + (size_t)st * NT * SLOT + (size_t)NT * WV * 16 + ((size_t)j * NT + tid) * XB;
+  };
+
+  // step s of this thread into stage st: cache rows s*16 + 2c + (i & 1)
+  // + 8 (i >> 1), i = 0..3, and the x words of rows 8q + g at the same
+  // rows of m (zero outside)
+  auto fetch = [&](int s, int st) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = s * KS + 2 * c + (i & 1) + 8 * (i >> 1);
+#pragma unroll
+      for (int h = 0; h < VPR; ++h) {
+        const int col = ncol + h * (16 / (int)sizeof(WT));
+        uint4* dst = wslot(st, i * VPR + h);
+        const WT* src = w + (size_t)k * n + col;
+        if (wvec) {
+          mma::cp_async16_l2(dst, src, k < m && col < n);
+        } else {
+          union {
+            uint4 u;
+            WT e[16 / sizeof(WT)];
+          } v;
+#pragma unroll
+          for (int e = 0; e < 16 / (int)sizeof(WT); ++e)
+            v.e[e] = k < m && col + e < n ? src[e] : fused::zero_of<WT>();
+          *dst = v.u;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 8 * q + g, k = s * KS + 2 * c + 8 * h;
+        unsigned char* dst = xslot(st, 2 * q + h);
+        const XT* src = x + (size_t)row * m + k;
+        if (xvec) {
+          if constexpr (BF16) mma::cp_async4(dst, src, row < nr && k < m);
+          else mma::cp_async8(dst, src, row < nr && k < m);
+        } else {
+          union {
+            uint2 u;
+            XT e[2];
+          } v;
+          v.u = make_uint2(0, 0);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) v.e[e] = row < nr && k + e < m ? src[e] : fused::zero_of<XT>();
+          if constexpr (BF16) *reinterpret_cast<uint32_t*>(dst) = v.u.x;
+          else *reinterpret_cast<uint2*>(dst) = v.u;
+        }
+      }
+    }
+  };
+
+  float acc[T][NQ][4];                // [tile][n8 tile][C fragment]
+  float pt[BF16 ? 1 : T][NQ][4];      // fp32: one step's partial sums
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[t][q][e] = 0.f;
+        if constexpr (!BF16) pt[t][q][e] = 0.f;
+      }
+
+  // one step from stage st: tile t's A fragment holds the thread's
+  // columns 2t (M row g) and 2t + 1 (M row g + 8)
+  auto contract = [&](int st) {
+    uint4 v[4][VPR];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < VPR; ++h) v[i][h] = *wslot(st, i * VPR + h);
+    if constexpr (BF16) {
+      uint32_t b[NQ][2];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          b[q][h] = *reinterpret_cast<const uint32_t*>(xslot(st, 2 * q + h));
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        uint32_t a[4];   // (col 2t, rows 2c|2c+1), (2t+1, same), (2t, 2c+8|2c+9), (2t+1, same)
+        if constexpr (I8) {
+          const int h = t >> 3, u = (t >> 1) & 3;
+          const uint32_t sel = (t & 1) ? 0x7362u : 0x5140u;
+          const uint2 lo = i8x4_to_bf16x4(__byte_perm(word(v[0][h], u), word(v[1][h], u), sel));
+          const uint2 hi = i8x4_to_bf16x4(__byte_perm(word(v[2][h], u), word(v[3][h], u), sel));
+          a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
+        } else {
+          const int h = t >> 2, u = t & 3;
+          const uint32_t w0 = word(v[0][h], u), w1 = word(v[1][h], u);
+          const uint32_t w2 = word(v[2][h], u), w3 = word(v[3][h], u);
+          a[0] = h2_to_bf2(__byte_perm(w0, w1, 0x5410));
+          a[1] = h2_to_bf2(__byte_perm(w0, w1, 0x7632));
+          a[2] = h2_to_bf2(__byte_perm(w2, w3, 0x5410));
+          a[3] = h2_to_bf2(__byte_perm(w2, w3, 0x7632));
+        }
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) mma::mma_bf16(acc[t][q], a, b[q]);
+      }
+    } else {
+      // x_lo·W + x_hi·W in TF32 (W exact), sub-step h over rows
+      // 2c + 8h (MMA k = c) and 2c + 8h + 1 (k = c + 4)
+      uint32_t bh[NQ][2][2], bl[NQ][2][2];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 xv = *reinterpret_cast<const float2*>(xslot(st, 2 * q + h));
+          mma::split(xv.x, bh[q][h][0], bl[q][h][0]);
+          mma::split(xv.y, bh[q][h][1], bl[q][h][1]);
+        }
+      uint4 ub[4][VPR];
+      if constexpr (I8) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < VPR; ++h)
+            ub[i][h] = make_uint4(v[i][h].x ^ 0x80808080u, v[i][h].y ^ 0x80808080u,
+                                  v[i][h].z ^ 0x80808080u, v[i][h].w ^ 0x80808080u);
+      }
+      // W[row i][column j] of this thread as an fp32 bit pattern
+      auto wat = [&](int i, int j) -> uint32_t {
+        if constexpr (I8) {
+          return i8_to_f32(word(ub[i][j >> 4], (j >> 2) & 3), j & 3);
+        } else {
+          const uint32_t hw = word(v[i][j >> 3], (j & 7) >> 1);
+          return __float_as_uint(__half2float(
+              __ushort_as_half(static_cast<unsigned short>((j & 1) ? hw >> 16 : hw))));
+        }
+      };
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t a[4] = {wat(2 * h, 2 * t), wat(2 * h, 2 * t + 1), wat(2 * h + 1, 2 * t),
+                                 wat(2 * h + 1, 2 * t + 1)};
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) mma::mma_tf32(pt[t][q], a, bl[q][h]);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) mma::mma_tf32(pt[t][q], a, bh[q][h]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) mma::add_to(acc[t][q], pt[t][q]);
+    }
+  };
+
+  // ---- the ring: this warp's i-th step lands in stage i % ST
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < mine) fetch(s0 + warp + i * WARPS, i);
+    mma::cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    mma::cp_async_wait<ST - 2>();
+    const int st = i % ST;
+    if (i + ST - 1 < mine) fetch(s0 + warp + (i + ST - 1) * WARPS, (i + ST - 1) % ST);
+    mma::cp_async_commit();
+    contract(st);
+  }
+  mma::cp_async_wait_all();
+  __syncthreads();   // every warp is done with the ring: it becomes red
+
+  // ---- the warps' partial sums, added in warp order. Entry
+  // f = (t NQ + q) 4 + e of lane l is stored at red[warp][f][l] and is
+  // y[row 8q + 2(l % 4) + (e & 1)][column COLS (l / 4) + 2t + (e >> 1)].
+  constexpr int F = 4 * T * NQ;
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(warp * F + (t * NQ + q) * 4 + e) * 32 + lane] = acc[t][q][e];
+  __syncthreads();
+  for (int i = tid; i < F * 32; i += NT) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < WARPS; ++wi) sum += red[wi * F * 32 + i];
+    const int l = i & 31, f = i >> 5, e = f & 3, q = (f >> 2) % NQ, t = (f >> 2) / NQ;
+    const int row = 8 * q + 2 * (l & 3) + (e & 1);
+    const int col = blockIdx.x * BN + COLS * (l >> 2) + 2 * t + (e >> 1);
+    if (row >= nr || col >= n) continue;
+    const size_t at = (size_t)(row0 + row) * n + col;
+    if (splits > 1) {
+      ws[(size_t)split * rows * n + at] = sum;
+    } else {
+      if (scale != nullptr) sum *= scale[col];
+      y[at] = tiles::from_f<XT>(sum);
+    }
+  }
+  if (splits == 1) return;
+
+  // ---- the last block of this output tile to finish adds the splits'
+  // partial sums in split order and applies the scale (the order and the
+  // bits of fused.cuh's reduce_splits), then resets the tile's counter
+  // for the next launch: one launch, no float atomics
+  __shared__ int last;
+  const int tile = rb * gridDim.x + blockIdx.x;
+  __threadfence();   // this block's partial sums are visible before its arrival
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + tile, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < nr * BN; i += NT) {
+    const int row = i / BN, col = blockIdx.x * BN + i % BN;
+    if (col >= n) continue;
+    const size_t at = (size_t)(row0 + row) * n + col;
+    float v = 0.f;
+    for (int p = 0; p < splits; ++p) v += __ldcg(ws + (size_t)p * rows * n + at);
+    if (scale != nullptr) v *= scale[col];
+    y[at] = tiles::from_f<XT>(v);
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <typename XT, typename WT, int NQ>
+cudaError_t prepare() {
+  return tiles::allow_smem(w8_decode_kernel<XT, WT, NQ>, smem_bytes<XT, WT, NQ>());
+}
+
+template <typename XT> int nq_for(int rows) { return rows <= 8 ? 1 : max_nq<XT>(); }
+
+// Splits of m: the count of at most 16 (each warp at least one step)
+// that minimizes waves x steps per block over two block slots per SM
+// (fused.cuh's pick_splits). A sweep of 1-32 splits on the card found
+// it close to the best count of each qwen3-8b projection.
+inline int splits(int blocks, int m, int sms) {
+  const int steps = (m + KS - 1) / KS;
+  return fused::pick_splits(blocks, std::max(1, steps / WARPS), 2LL * sms);
+}
+
+// Output tiles of a launch (column tiles x row blocks): one counter each.
+template <typename XT>
+int tiles_for(int rows, int n) {
+  return ((n + BN - 1) / BN) * ((rows + 8 * nq_for<XT>(rows) - 1) / (8 * nq_for<XT>(rows)));
+}
+
+template <typename XT>
+int splits_for(int rows, int m, int n, int sms) {
+  return splits(tiles_for<XT>(rows, n), m, sms);
+}
+
+template <typename XT, typename WT, int NQ>
+int launch_nq(const void* x, const void* w, const void* scale, void* y, void* ws, int* counters,
+              int rows, int m, int n, int splits, cudaStream_t s) {
+  cudaError_t err = prepare<XT, WT, NQ>();
+  if (err != cudaSuccess) return (int)err;
+  const long long gy = (long long)((rows + 8 * NQ - 1) / (8 * NQ)) * splits;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BN - 1) / BN, (unsigned)gy);
+  w8_decode_kernel<XT, WT, NQ><<<grid, NT, smem_bytes<XT, WT, NQ>(), s>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w), static_cast<const float*>(scale),
+      static_cast<XT*>(y), static_cast<float*>(ws), counters, rows, m, n, splits);
+  return (int)cudaGetLastError();
 }
 
 template <typename XT, typename WT>
-int launch_w8_skinny(const void* x, const void* w, const void* scale, void* y, int rows,
-                     int m, int n, cudaStream_t s) {
-  auto k = w8_skinny_kernel<XT, WT>;
-  cudaError_t err = tiles::allow_smem(k, tiles::smem_bytes(tiles::Skinny::MAXR));
-  if (err != cudaSuccess) return (int)err;
-  k<<<tiles::grid_for(rows, n), tiles::NT, tiles::smem_bytes(rows), s>>>(
-      static_cast<const XT*>(x), static_cast<const WT*>(w), static_cast<const float*>(scale),
-      static_cast<XT*>(y), rows, m, n);
-  return (int)cudaGetLastError();
+int launch(const void* x, const void* w, const void* scale, void* y, void* ws, int* counters,
+           int rows, int m, int n, int splits, cudaStream_t s) {
+  if constexpr (max_nq<XT>() == 2)
+    if (nq_for<XT>(rows) == 2)
+      return launch_nq<XT, WT, 2>(x, w, scale, y, ws, counters, rows, m, n, splits, s);
+  return launch_nq<XT, WT, 1>(x, w, scale, y, ws, counters, rows, m, n, splits, s);
 }
+
+template <typename XT, typename WT>
+size_t smem_for(int rows) {
+  if constexpr (max_nq<XT>() == 2)
+    if (nq_for<XT>(rows) == 2) return smem_bytes<XT, WT, 2>();
+  return smem_bytes<XT, WT, 1>();
+}
+
+}  // namespace w8d
 
 // ------------------------------------------------------------ K8, prefill
 
@@ -141,22 +540,6 @@ template <typename XT, typename WT> constexpr size_t smem_bytes() {
   return (size_t)stages<XT, WT>() * stage_bytes<XT, WT>() +
          (sizeof(XT) == 2 && !in_place<XT, WT>() ? 2 * BK * wst<XT>() * sizeof(__nv_bfloat16)
                                                  : 0);
-}
-
-// Four int8 values (one word) as two bf16 pairs, exactly and without
-// conversion instructions (which run at a quarter of the FMA rate or
-// less): byte b, biased to u = b ^ 0x80, placed under the exponent of
-// 2^23 is the fp32 value 2^23 + u; subtracting 2^23 + 128 leaves b, an
-// integer of at most 8 significant bits, whose fp32 pattern's top half
-// is its bf16 pattern.
-__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
-  const uint32_t u = w ^ 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    f[k] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + k)) -
-                           8388736.f);
-  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
 }
 
 // Grid: (⌈n/BN⌉, row blocks x splits). Block (bx, by) computes
@@ -451,13 +834,11 @@ int launch(const void* x, const void* w, const void* scale, void* y, void* ws, i
 
 }  // namespace w8
 
-// Activation rows up to which K8 takes the decode kernel.
-constexpr int W8_SKINNY_ROWS = tiles::Skinny::MAXR;
-
 template <typename XT, typename WT>
-int launch_w8(const void* x, const void* w, const void* scale, void* y, void* ws, int rows,
-              int m, int n, int splits, cudaStream_t s) {
-  if (rows <= W8_SKINNY_ROWS) return launch_w8_skinny<XT, WT>(x, w, scale, y, rows, m, n, s);
+int launch_w8(const void* x, const void* w, const void* scale, void* y, void* ws, int* counters,
+              int rows, int m, int n, int splits, cudaStream_t s) {
+  if (rows <= w8d::MAX_ROWS)
+    return w8d::launch<XT, WT>(x, w, scale, y, ws, counters, rows, m, n, splits, s);
   return w8::launch<XT, WT>(x, w, scale, y, ws, rows, m, n, splits, s);
 }
 
@@ -489,10 +870,14 @@ struct ResidOp {
 
 extern "C" {
 
-// How many blocks split the m axis of a K8 launch (>= 1; 1 at decode
-// width): the fewest that fill the card's `sms` multiprocessors.
+// How many blocks split the m axis of a K8 launch (>= 1): at decode
+// widths enough for two blocks per SM, at prefill widths the fewest that
+// fill the card's `sms` multiprocessors.
 int repro_w8_splits(int rows, int m, int n, int x_dtype, int w_dtype, int sms) {
-  if (rows <= W8_SKINNY_ROWS || m <= 0 || n <= 0 || sms <= 0) return 1;
+  if (rows <= 0 || m <= 0 || n <= 0 || sms <= 0) return 1;
+  if (rows <= w8d::MAX_ROWS)
+    return x_dtype == X_F32 ? w8d::splits_for<float>(rows, m, n, sms)
+                            : w8d::splits_for<__nv_bfloat16>(rows, m, n, sms);
   if (x_dtype == X_F32 && w_dtype == W_I8) return w8::splits<float, int8_t>(rows, m, n, sms);
   if (x_dtype == X_F32 && w_dtype == W_F16) return w8::splits<float, __half>(rows, m, n, sms);
   if (x_dtype == X_BF16 && w_dtype == W_I8)
@@ -502,25 +887,38 @@ int repro_w8_splits(int rows, int m, int n, int x_dtype, int w_dtype, int sms) {
   return 1;
 }
 
+// The tile counters a split K8 launch at decode width (rows <= 32)
+// needs: one int per output tile, zero before the first launch (each
+// launch leaves them zero); 0 at prefill widths.
+int repro_w8_counters(int rows, int n, int x_dtype) {
+  if (rows <= 0 || rows > w8d::MAX_ROWS || n <= 0) return 0;
+  return x_dtype == X_F32 ? w8d::tiles_for<float>(rows, n) : w8d::tiles_for<__nv_bfloat16>(rows, n);
+}
+
 // K8: y (rows, n) = (x (rows, m) · W (m, n)) · scale (n); scale may be
 // null. x_dtype: X_F32 | X_BF16 (y has x's dtype); w_dtype: W_I8 |
 // W_F16. splits: from repro_w8_splits; when > 1, ws is an fp32
-// workspace of splits x rows x n. Returns the cudaError_t of the launch
-// (0 on success).
+// workspace of splits x rows x n, and at decode widths counters holds
+// repro_w8_counters zeros (a launch sums its own splits and leaves them
+// zero; launches that share them must be ordered, as on one stream).
+// Returns the cudaError_t of the launch (0 on success).
 int repro_w8_matmul(const void* x, const void* w, const void* scale, void* y, void* ws,
-                    int rows, int m, int n, int x_dtype, int w_dtype, int splits,
-                    void* stream) {
+                    void* counters, int rows, int m, int n, int x_dtype, int w_dtype,
+                    int splits, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  if (splits < 1 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || (splits > 1 && ws == nullptr) ||
+      (splits > 1 && rows <= w8d::MAX_ROWS && counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* cnt = static_cast<int*>(counters);
   if (x_dtype == X_F32 && w_dtype == W_I8)
-    return launch_w8<float, int8_t>(x, w, scale, y, ws, rows, m, n, splits, s);
+    return launch_w8<float, int8_t>(x, w, scale, y, ws, cnt, rows, m, n, splits, s);
   if (x_dtype == X_F32 && w_dtype == W_F16)
-    return launch_w8<float, __half>(x, w, scale, y, ws, rows, m, n, splits, s);
+    return launch_w8<float, __half>(x, w, scale, y, ws, cnt, rows, m, n, splits, s);
   if (x_dtype == X_BF16 && w_dtype == W_I8)
-    return launch_w8<__nv_bfloat16, int8_t>(x, w, scale, y, ws, rows, m, n, splits, s);
+    return launch_w8<__nv_bfloat16, int8_t>(x, w, scale, y, ws, cnt, rows, m, n, splits, s);
   if (x_dtype == X_BF16 && w_dtype == W_F16)
-    return launch_w8<__nv_bfloat16, __half>(x, w, scale, y, ws, rows, m, n, splits, s);
+    return launch_w8<__nv_bfloat16, __half>(x, w, scale, y, ws, cnt, rows, m, n, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -531,7 +929,11 @@ int repro_serve_smem_bytes(int kernel, int rows, int r, int x_dtype, int w_dtype
   const bool f32 = x_dtype == X_F32, i8 = w_dtype == W_I8;
   if ((!f32 && x_dtype != X_BF16) || (!i8 && w_dtype != W_F16)) return -1;
   if (kernel == 0) {
-    if (rows <= W8_SKINNY_ROWS) return (int)tiles::smem_bytes(rows);
+    if (rows <= w8d::MAX_ROWS) {
+      if (f32) return (int)(i8 ? w8d::smem_for<float, int8_t>(rows) : w8d::smem_for<float, __half>(rows));
+      return (int)(i8 ? w8d::smem_for<__nv_bfloat16, int8_t>(rows)
+                      : w8d::smem_for<__nv_bfloat16, __half>(rows));
+    }
     if (f32) return (int)(i8 ? w8::smem_bytes<float, int8_t>() : w8::smem_bytes<float, __half>());
     return (int)(i8 ? w8::smem_bytes<__nv_bfloat16, int8_t>()
                     : w8::smem_bytes<__nv_bfloat16, __half>());

@@ -21,14 +21,24 @@ which pick it at each launch:
   columns (bf16) or 128 x 128 (fp32) per block, steps of 64 rows of m
   in a ring of 3-4 shared-memory stages; grid = (ceil(n / columns),
   row blocks x splits of m);
-* the CUDA-core kernels share ``csrc/tiles.cuh``: every block has 256
-  threads (``NT``) and owns 32 output columns (``BN``); K8 at decode
-  (rows <= 32) takes up to 32 rows in steps of 128 rows of m, split over
-  the block's 8 warps, grid = (ceil(n / 32), ceil(rows / 32)); the
-  rank-r tile compose walks rank chunks of 32 (``RC``): the compose
-  kernels K5/K6 (``csrc/fedpara_compose.cu``) compose a (128 x 32) tile
-  of W per block on grid (ceil(n / 32), ceil(m / 128), layers), and K4
-  (``csrc/fedpara_grad.cu``) 32 x 32 tiles.
+* K8 at decode widths (rows <= 32, ``csrc/serve_matmul.cu``) streams the
+  cache: 256 threads (8 warps) over 128 columns and up to 16 rows (8 for
+  fp32 activations) per block, steps of 16 rows of m per warp through a
+  3-6 stage cp.async ring that each thread fills and reads itself, x as
+  the MMA's 8-column operand; grid = (ceil(n / 128), row blocks x
+  splits of m), the splits chosen for two blocks per SM and summed in
+  the same launch by the last block of each output tile;
+* K4 (``csrc/fedpara_grad.cu``, both forms) runs 512 threads (16 warps)
+  over 32 own rows (16 when the rank is above 256) per block, sweeping
+  the other axis in steps of 32 columns: dW on the tensor cores from a
+  2-3 stage ring of batch chunks, the rank-r composes and contractions
+  in 3xTF32; grid = (ceil(P / rows), splits of the sweep, clients).
+  Above rank 336 the factors are read from global memory rather than
+  staged, and grid y also splits the output's rank into blocks of 512;
+* the CUDA-core compose of the compose kernels K5/K6
+  (``csrc/fedpara_compose.cu``, ``csrc/tiles.cuh``): 256 threads per
+  block, a (128 x 32) tile of W per block on grid (ceil(n / 32),
+  ceil(m / 128), layers), rank chunks of 32 (``RC``).
 
 This module holds no code: the wrappers pass shapes, and the C entry
 points choose the block shape, grid and shared memory.

@@ -29,6 +29,7 @@ The launchers here take CUDA tensors only and launch unconditionally.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -36,11 +37,12 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import build
 from repro_torch.kernels.fedpara_matmul import (KIND_CODES, check_operands,
                                                 launch)
-from repro_torch.kernels.serve_matmul import X_CODES, check_status
+from repro_torch.kernels.serve_matmul import X_CODES, _sms, check_status
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_dfactors_splits": [_I] * 5,
+    "repro_dfactors_splits": [_I] * 6,
+    "repro_dfactors_smem_bytes": [_I] * 2,
     "repro_fedpara_dfactors": [_P] * 9 + [_I] * 8 + [_P],
 }
 
@@ -51,6 +53,21 @@ def _cfn(symbol: str):
         fn.argtypes = _SIGNATURES[symbol]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(clients: int, P: int, Q: int, r: int, x_code: int,
+            sms: int) -> int:
+    """K4's split count of the Q sweep from the CUDA source's own query
+    (an occupancy computation), once per shape: a training step calls
+    the same few shapes every layer."""
+    return _cfn("repro_dfactors_splits")(clients, P, Q, r, x_code, sms)
+
+
+def smem_bytes(r: int, x_dtype) -> int:
+    """The dynamic shared memory of one K4 block at rank ``r`` for
+    activations of ``x_dtype``, from the CUDA source's own layout."""
+    return _cfn("repro_dfactors_smem_bytes")(r, X_CODES[x_dtype])
 
 
 def fedpara_dx(dy: torch.Tensor, x1, y1, x2, y2, *,
@@ -92,11 +109,11 @@ def fedpara_dfactors(x: torch.Tensor, dy: torch.Tensor, x1, y1, x2, y2, *,
     dev = x.device
     o1 = torch.empty((*lead, P, r), dtype=torch.float32, device=dev)
     o2 = torch.empty((*lead, P, r), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = _cfn("repro_dfactors_splits")(clients, P, Q, r, sms)
-    scratch = (torch.empty((2, splits, clients, P, r), dtype=torch.float32,
-                           device=dev) if splits > 1 else None)
     with torch.cuda.device(dev):
+        splits = _splits(clients, P, Q, r, X_CODES[x.dtype], _sms(dev))
+        scratch = (torch.empty((2, splits, clients, P, r),
+                               dtype=torch.float32, device=dev)
+                   if splits > 1 else None)
         err = _cfn("repro_fedpara_dfactors")(
             a.data_ptr(), d.data_ptr(), f1.data_ptr(), f2.data_ptr(),
             h1.data_ptr(), h2.data_ptr(), o1.data_ptr(), o2.data_ptr(),

@@ -172,6 +172,38 @@ def fedpara_dfactors_ref(x, dy, x1, y1, x2, y2, *, side: str,
     raise ValueError(f"side must be 'x' or 'y', got {side!r}")
 
 
+def fedpara_dfactors_tf32(x, dy, x1, y1, x2, y2, *, side: str,
+                          kind: str = "fedpara", passes: int = 3):
+    """K4 as the kernel computes it on the tensor cores
+    (``csrc/fedpara_grad.cu``): dW = xᵀdy from bf16 products (exact in
+    fp32) or, for fp32 activations, in TF32 passes; W1, W2 and the
+    contractions G·H (side x) or Gᵀ·F (side y) in TF32 passes; G in
+    fp32. ``passes=3`` is the kernel's 3xTF32, ``passes=1`` a single
+    TF32 pass (the cheaper design it does not use). Shapes as
+    :func:`fedpara_dfactors_ref`; returns fp32."""
+    if side not in ("x", "y"):
+        raise ValueError(f"side must be 'x' or 'y', got {side!r}")
+    if x.dtype == torch.bfloat16:
+        dw = x.float().mT @ dy.float()
+    else:
+        dw = _tf32_product(x.float().mT, dy.float().mT, passes)
+    w1 = _tf32_product(x1.float(), y1.float(), passes)
+    w2 = _tf32_product(x2.float(), y2.float(), passes)
+    if kind == "fedpara_tanh":
+        t1, t2 = torch.tanh(w1), torch.tanh(w2)
+        g1, g2 = dw * t2 * (1.0 - t1 * t1), dw * t1 * (1.0 - t2 * t2)
+    elif kind in KINDS:
+        g1 = dw * (w2 + 1.0 if kind == "pfedpara" else w2)
+        g2 = dw * w1
+    else:
+        raise ValueError(f"unsupported fused-matmul kind: {kind!r}")
+    if side == "x":   # G·H with H = Y: a @ bᵀ for b = Yᵀ
+        return (_tf32_product(g1, y1.float().mT, passes),
+                _tf32_product(g2, y2.float().mT, passes))
+    return (_tf32_product(g1.mT, x1.float().mT, passes),
+            _tf32_product(g2.mT, x2.float().mT, passes))
+
+
 def fedpara_matmul_vjp_ref(x, x1, y1, x2, y2, dy, *, kind: str = "fedpara"):
     """Closed-form dense VJP oracle: (dx, dX1, dY1, dX2, dY2) in fp32
     (dx in x's dtype), the reference's ``kernels/ref.py:133-169``:

@@ -5,8 +5,9 @@ and the Hadamard-Gram decode.
     y = (x @ W_q) · s for a pre-composed cache stored int8 (or fp16,
     ``scale=None``). The cache tile is widened on chip only; the
     per-column scale is applied once to the fp32 accumulator. Decode
-    widths (rows <= 32) take a CUDA-core kernel bound by the cache's
-    bytes, prefill widths a tensor-core GEMM. Replaces
+    widths (rows <= 32) take a kernel bound by the cache's bytes, which
+    streams it through a cp.async ring into ``mma.sync`` with x as the
+    narrow operand; prefill widths a tensor-core GEMM. Replaces
     ``repro/kernels/serve_matmul.py:_w8_kernel`` (K8).
 
 ``cache_residual_matmul``
@@ -19,7 +20,9 @@ and the Hadamard-Gram decode.
 
 A launch too small to fill the card splits the contraction axis across
 blocks; the wrapper then allocates the fp32 workspace of the partial
-sums, which a second pass adds in a fixed order.
+sums, which a second pass adds in a fixed order. K8 at decode widths
+adds them in its own launch, into a workspace and tile counters kept per
+device and stream between calls.
 
 ``fedpara_gram_decode``
     The decode-batch fused path through the Gram identity. The
@@ -45,7 +48,8 @@ W_CODES = {torch.int8: 0, torch.float16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_w8_splits": [_I] * 6,
-    "repro_w8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "repro_w8_counters": [_I] * 3,
+    "repro_w8_matmul": [_P] * 6 + [_I] * 6 + [_P],
     "repro_cache_residual_splits": [_I] * 8,
     "repro_cache_residual": [_P] * 7 + [_I] * 5 + [_LL, _LL] + [_I] * 3 + [_P],
     "repro_serve_smem_bytes": [_I] * 5,
@@ -89,9 +93,10 @@ def _scale_vec(scale, n: int, device):
 
 @functools.lru_cache(maxsize=None)
 def _splits(symbol: str, *shape: int) -> int:
-    """A launch's split count from the CUDA source's own query (an
-    occupancy computation), once per shape: serving calls the same few
-    shapes every layer and step, and decode is bound by host time."""
+    """A launch's split count (or K8's counter count) from the CUDA
+    source's own query (an occupancy computation), once per shape:
+    serving calls the same few shapes every layer and step, and decode
+    is bound by host time."""
     return _cfn(symbol)(*shape)
 
 
@@ -103,8 +108,33 @@ def _workspace(splits: int, shape, device):
     return torch.empty((splits, *shape), dtype=torch.float32, device=device)
 
 
+_DECODE_SCRATCH: dict = {}
+
+
+def _decode_scratch(device, stream: int, ws_numel: int, counters: int):
+    """K8's decode scratch on one stream, kept between calls: the fp32
+    partial sums and the int32 tile counters, which start at zero and
+    which every launch leaves at zero. Each only grows; a larger one is
+    allocated on the same stream, after the launches that used the old."""
+    key = (device, stream)
+    ws, cnt = _DECODE_SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < ws_numel:
+        ws = torch.empty(ws_numel, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+    _DECODE_SCRATCH[key] = (ws, cnt)
+    return ws, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The card's SM count, read once per device (decode calls this for
+    every projection of every step)."""
+    return _sms_of(torch.device(device).index or 0)
 
 
 def smem_bytes(kernel: str, rows: int, r: int, x_dtype, w_dtype) -> int:
@@ -133,12 +163,19 @@ def w8_matmul(x: torch.Tensor, w: torch.Tensor, scale=None) -> torch.Tensor:
     with torch.cuda.device(x.device):
         splits = _splits("repro_w8_splits", rows, m, n, xcode, wcode,
                          _sms(x.device))
-        ws = _workspace(splits, (rows, n), x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _splits("repro_w8_counters", rows, n, xcode)
+        cnt = None
+        if splits > 1 and counters > 0:   # decode: sums its splits itself
+            ws, cnt = _decode_scratch(x.device, stream, splits * rows * n,
+                                      counters)
+        else:
+            ws = _workspace(splits, (rows, n), x.device)
         err = _cfn("repro_w8_matmul")(
             xc.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-            y.data_ptr(), None if ws is None else ws.data_ptr(), rows, m, n,
-            xcode, wcode, splits,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            y.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), rows, m, n,
+            xcode, wcode, splits, stream)
     check_status(err, "w8_matmul")
     return y
 

@@ -321,3 +321,144 @@ def test_cache_residual_strided_users_match_reference_kernel(U, t, m, n, r,
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     twin = ref.cache_residual_tf32(_t(x), _t(wq), s, ux2, uy2)
     np.testing.assert_allclose(twin.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 17, 32])
+def test_w8_decode_two_tf32_passes_keep_fp32_accuracy(rows):
+    """K8's decode kernel takes fp32 activations as its prefill kernel
+    does (``ref.w8_matmul_tf32``: x_hi·W + x_lo·W, W exact): at decode
+    rows and m = 4096 the two passes stay within 5e-6 of an fp64 product
+    for both caches; x_hi·W alone is at least 10x off."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(100 + rows)
+    m, n = 4096, 48
+    x = torch.from_numpy(rng.standard_normal((rows, m)).astype(np.float32))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (m, n)).astype(np.int8))
+    s = torch.from_numpy((1e-3 + 1e-2 * rng.random(n)).astype(np.float32))
+    w16 = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float16))
+    for w, sc in ((w8, s), (w16, None)):
+        want = x.double() @ w.double()
+        if sc is not None:
+            want = want * sc.double()
+        scale = float(want.abs().max())
+        err2 = float((ref.w8_matmul_tf32(x, w, sc, passes=2).double() - want)
+                     .abs().max()) / scale
+        err1 = float((ref.w8_matmul_tf32(x, w, sc, passes=1).double() - want)
+                     .abs().max()) / scale
+        assert err2 < 5e-6, (w.dtype, err2)
+        assert err1 >= 10 * err2, (w.dtype, err1, err2)
+
+
+# ------------------------------------- the factor gradients' precision
+
+def _dfactors_f64(x, dy, fac, kind, side):
+    """K4's function in fp64: (dX1, dX2) or (dY1, dY2)."""
+    x1, y1, x2, y2 = (f.double() for f in fac)
+    w1, w2 = x1 @ y1.mT, x2 @ y2.mT
+    dw = x.double().mT @ dy.double()
+    if kind == "fedpara_tanh":
+        t1, t2 = torch.tanh(w1), torch.tanh(w2)
+        g1, g2 = dw * t2 * (1 - t1 * t1), dw * t1 * (1 - t2 * t2)
+    else:
+        g1 = dw * (w2 + 1 if kind == "pfedpara" else w2)
+        g2 = dw * w1
+    if side == "x":
+        return g1 @ y1, g2 @ y2
+    return g1.mT @ x1, g2.mT @ x2
+
+
+@pytest.mark.parametrize("r", [160, 70, 211])
+@pytest.mark.parametrize("kind", ["fedpara", "fedpara_tanh", "pfedpara"])
+def test_dfactors_tf32_keeps_fp32_accuracy(r, kind):
+    """K4 on the tensor cores (``ref.fedpara_dfactors_tf32``: dW, the
+    composes and the contractions G·H in 3xTF32, G in fp32) stays within
+    2e-6 of an fp64 computation at qwen3-8b's ranks, both sides, the
+    accuracy the fp32 gate (1e-5) needs; a single TF32 pass does not
+    stay within 1e-4."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(r + len(kind))
+    B, m, n = 32, 64, 48
+    x = torch.from_numpy(rng.standard_normal((B, m)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((B, n)).astype(np.float32))
+    fac = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(r))
+                            .astype(np.float32))
+           for s in ((m, r), (n, r), (m, r), (n, r))]
+    for side in ("x", "y"):
+        want = _dfactors_f64(x, dy, fac, kind, side)
+        for passes, bound in ((3, 2e-6), (1, None)):
+            got = ref.fedpara_dfactors_tf32(x, dy, *fac, side=side,
+                                            kind=kind, passes=passes)
+            err = max(float((g.double() - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+            if bound is not None:
+                assert err < bound, (side, passes, err)
+            else:
+                assert err > 1e-4, (side, passes, err)
+
+
+@pytest.mark.parametrize("C,B,m,n,r", [(0, 5, 100, 72, 5), (0, 1, 130, 97, 37),
+                                       (3, 33, 64, 10, 4), (0, 4, 24, 20, 505)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_dfactors_twin_matches_reference_kernel(C, B, m, n, r, dtype):
+    """The host twin of K4's arithmetic (``ref.fedpara_dfactors_tf32``)
+    against the reference's Pallas kernels in interpret mode at ragged
+    batch, m, n and r, with and without a client axis, both sides, all
+    kinds; bf16 activations are rounded once on the host and fed to both
+    in fp32 (the kernel's bf16 products are exact in fp32). Tolerance:
+    the file's."""
+    from repro.kernels import fedpara_grad as jgrad
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(C * 1000 + B + r)
+    lead = (C,) if C else ()
+    x = rng.standard_normal((*lead, B, m)).astype(np.float32)
+    dy = rng.standard_normal((*lead, B, n)).astype(np.float32)
+    if dtype == "bf16":
+        x, dy = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                 for a in (x, dy))
+    fac = [(0.3 * rng.standard_normal((*lead, d, r))).astype(np.float32)
+           for d in (m, n, m, n)]
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    tx, tdy = _t(x).to(tdt), _t(dy).to(tdt)
+    for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+        flags = dict(use_tanh=kind == "fedpara_tanh",
+                     plus_one=kind == "pfedpara", interpret=True)
+        for side, fn in (("x", jgrad.fedpara_dx_factors),
+                         ("y", jgrad.fedpara_dy_factors)):
+            want = fn(x, dy, *fac, **flags)
+            got = ref.fedpara_dfactors_tf32(tx, tdy, *map(_t, fac), side=side,
+                                            kind=kind)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                           err_msg=f"{kind} side {side}")
+
+
+@pytest.mark.parametrize("r", [337, 505, 1100])
+@pytest.mark.parametrize("C", [0, 2])
+def test_dfactors_wrapper_takes_any_rank(C, r):
+    """K4's wrapper takes every rank: above 336 the card's kernel reads
+    the factors from global memory and splits the output's rank into
+    blocks of 512, and no rank is refused (γ = 0.3 gives r = 505 at
+    qwen3-8b's MLP widths). On the host the wrapper is the plain
+    version; it holds to an fp64 computation at fp32 accuracy (1e-5),
+    both sides, with and without a client axis."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(r + C)
+    B, m, n = 9, 20, 13
+    lead = (C,) if C else ()
+    x = torch.from_numpy(rng.standard_normal((*lead, B, m)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((*lead, B, n)).astype(np.float32))
+    fac = [torch.from_numpy((rng.standard_normal((*lead, d, r)) / np.sqrt(r))
+                            .astype(np.float32)) for d in (m, n, m, n)]
+    for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+        for side in ("x", "y"):
+            got = ops.fedpara_dfactors(x, dy, *fac, side=side, kind=kind)
+            want = _dfactors_f64(x, dy, fac, kind, side)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and g.dtype == torch.float32
+                err = float((g.double() - w).abs().max() / w.abs().max())
+                assert err < 1e-5, (kind, side, err)
