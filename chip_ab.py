@@ -1,6 +1,7 @@
-"""Two trees on one card, in turns: phase 3's and phase 5's serve numbers
-and the device times of K8's decode kernel and K4, every run measured by
-this tree's ``chip_smoke.py`` (its phases and its ``Clock``).
+"""Two trees on one card, in turns: phase 3's and phase 5's serve numbers,
+the serve caches' build times and the device times of the compose
+kernels K5/K6, K8's decode kernel and K4, every run measured by this
+tree's ``chip_smoke.py`` (its phases and its ``Clock``).
 
 Phase 3's decode and phase 5's prefill are host-bound, and their wall
 times move from run to run and from machine to machine more than a
@@ -16,9 +17,12 @@ The runs go A, B, B, A, A, B, B, A, ... (``--pairs`` runs of each
 tree), each in a process of its own that builds that tree's kernels
 from its own sources (``build/`` under the tree, once) and imports that
 tree's ``repro_torch``. A run serves 36-layer qwen3-8b at batch 4 (phase
-3; then 16 more decode steps, each step's host enqueue time on the host
-clock against the steps' span in CUDA events) and 4 pFedPara users
-(phase 5), then, unless ``--no-kernels``, times
+3, whose int8 cache K5 builds; then phase 4's fp16 cache, which K6
+builds, on the same weights; then 16 more decode steps, each step's
+host enqueue time on the host clock against the steps' span in CUDA
+events) and 4 pFedPara users (phase 5), then, unless ``--no-kernels``,
+times K5 (one qwen3-8b layer's 7 projections to fp32 W), K6 (each
+projection stacked over 36 layers, fp16 W), and
 per qwen3-8b layer of 7 projections (L2 flushed): K8 at 4 rows with an
 int8 and an fp16 cache; K4, both sides, at 512 rows of bf16 and of fp32
 and at 4 clients x 128 rows of bf16; and K4 at the gate projection with
@@ -59,9 +63,20 @@ m = {}
 cfg = cs._cfg("fedpara", 36)
 params = seeded_params(cfg, 0, "cuda")
 cs.phase_serve(params, m)
+# phase 4's fp16 cache (K6, one launch per projection kind), built as
+# phase_parity builds it, on the same weights
+from repro_torch.nn.transformer import ModelOptions
+from repro_torch.serve import ServeEngine
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+eng16 = ServeEngine(cfg, params, mode="precompose", cache_dtype="fp16", batch=4,
+                    opts=ModelOptions(attn_chunk=64, dtype=torch.float32))
+torch.cuda.synchronize()
+fp16_build_s = time.perf_counter() - t0
+del eng16
+torch.cuda.empty_cache()
 # decode's host time per step (the enqueue, no sync) against its span on
 # the card (CUDA events around 16 steps), on a fresh int8 engine
-from repro_torch.serve import ServeEngine
 eng = ServeEngine(cfg, params, mode="precompose", cache_dtype="int8", batch=4)
 prompts = torch.as_tensor(cs._prompts(4, 128, cfg.vocab_size, 1), device="cuda")
 cache = eng.init_cache(4, 128 + 18)
@@ -91,11 +106,24 @@ row = {"tree": sys.argv[1], "prefill_ms": s["prefill_ms"],
        "decode_busy_share": p.get("device_busy_share"),
        "decode_device_us_2_steps": p.get("device_us"),
        "users_prefill_ms": m["users"]["prefill_ms"],
-       "users_decode_ms": m["users"]["decode_ms"], **decode_host}
+       "users_decode_ms": m["users"]["decode_ms"],
+       "int8_cache_build_s": s["build_s"], "fp16_cache_build_s": fp16_build_s,
+       **decode_host}
 if kernels:
     torch.cuda.empty_cache()
     clock = cs.Clock(reps=5)
     gen = torch.Generator(device="cuda").manual_seed(7)
+    # K5: one layer's 7 projections to fp32 W (phase 3's int8 cache);
+    # K6: each projection stacked over 36 layers to fp16 W (phase 4's)
+    k5 = k6 = 0.0
+    for mm, n, r in cs.SHAPES.values():
+        fac = cs._factors(gen, mm, n, r)
+        k5 += clock(lambda: ops.fedpara_compose(*fac, out_dtype=torch.float32))
+        stack = tuple(torch.stack([f] * cs.MAIN_STACK) for f in fac)
+        k6 += clock(lambda: ops.fedpara_compose(*stack, out_dtype=torch.float16))
+        del fac, stack
+        torch.cuda.empty_cache()
+    row.update(compose_fp32_layer_ms=k5, compose_stacked_fp16_36_ms=k6)
     # the Clock's flush writes 256 MB, so the L2 holds dirty lines whose
     # write-back shares DRAM with the timed reads; this one reads them
     # (a sum), leaving the L2 clean, to size that share for K8 at decode

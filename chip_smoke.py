@@ -34,13 +34,17 @@ raises, so the script exits non-zero:
    and 32 rows with n = 1000 and m = 4096 or 1001 (both caches, both
    activation types), K4 at batches of 1, 33 and 100 rows, ragged own
    and other axes, ranks 1, 7 and 300 and 1, 3 and 8 clients (bf16 and
-   fp32, all kinds), two launches of K4 (2-D and with clients) and of
-   K8's split decode giving the same bits, and K10 at 1, 17 and 129 rows
-   per user with strided user slabs (fp32 activations); the compose
-   kernels K5 (W of one projection, fp32, fp16 and bf16, all kinds) and
-   K6 (the projection stacked over 2, 4 and, to fp16 W, 36 layers, the
-   depths of phases 10 and 4) at the same shapes, and at the reference
-   tests' ragged shapes;
+   fp32, all kinds), two launches of K4 (2-D and with clients), of
+   K8's split decode and of K5 and K6 giving the same bits, and K10 at
+   1, 17 and 129 rows per user with strided user slabs (fp32
+   activations); the compose kernels K5 (W of one projection, fp32,
+   fp16 and bf16, all kinds) and K6 (the projection stacked over 2, 4
+   and, to fp16 W, 36 layers, the depths of phases 10 and 4) at the
+   same shapes, at the reference tests' ragged shapes, on factors at
+   odd ranks that are views ending at the end of their storage (one of
+   them off a 16-byte boundary) between NaNs, and at ranks 1, 7, 337,
+   505 and 1100 of the wk projection's full width (all kinds, fp32 and
+   fp16 W, 2-D and over 2 layers);
 3. 36-layer qwen3-8b, ``kind=fedpara``, precompose int8: the cache
    composed by K5 (at least 7 x 36 launches, build seconds reported),
    batch 4, prompt 128, 16 greedy tokens through K8;
@@ -268,6 +272,7 @@ def ptxas_entries(log: str) -> list:
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels import fedpara_compose as fc
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -278,14 +283,19 @@ def phase_build():
     fused = ptxas_entries(str(built.get("fedpara_matmul", {}).get("log", "")))
     serve = ptxas_entries(str(built.get("serve_matmul", {}).get("log", "")))
     grad = ptxas_entries(str(built.get("fedpara_grad", {}).get("log", "")))
+    compose = ptxas_entries(str(built.get("fedpara_compose", {}).get("log",
+                                                                      "")))
     for name in build.SOURCES:
         build.library(name)
     serve_smem = _serve_smem()
     grad_smem = _grad_smem()
+    compose_smem = fc.smem_bytes()
     say("build", seconds=round(secs, 3), built=sorted(built),
         ptxas=ptxas[:40], fedpara_matmul_ptxas=fused,
         serve_matmul_ptxas=serve, serve_smem_bytes=serve_smem,
-        fedpara_grad_ptxas=grad, fedpara_grad_smem_bytes=grad_smem)
+        fedpara_grad_ptxas=grad, fedpara_grad_smem_bytes=grad_smem,
+        fedpara_compose_ptxas=compose,
+        fedpara_compose_smem_bytes=compose_smem)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -297,7 +307,9 @@ def phase_build():
                   "fedpara_matmul_ptxas": fused, "serve_matmul_ptxas": serve,
                   "serve_smem_bytes": serve_smem,
                   "fedpara_grad_ptxas": grad,
-                  "fedpara_grad_smem_bytes": grad_smem}
+                  "fedpara_grad_smem_bytes": grad_smem,
+                  "fedpara_compose_ptxas": compose,
+                  "fedpara_compose_smem_bytes": compose_smem}
 
 
 def _serve_smem() -> dict:
@@ -523,6 +535,8 @@ def phase_kernels(clock: Clock, quick: bool):
                             timed=(rows, m, n, r) in mlp)
     _agg_cases(record, gen, quick)
     _compose_ragged_cases(record, gen)
+    _compose_view_cases(record, gen)
+    _compose_rank_cases(record, gen)
     _serve_ragged_cases(record, gen)
     _decode_ragged_cases(record, gen)
     _dfactors_edge_cases(record, gen)
@@ -679,6 +693,57 @@ def _compose_ragged_cases(record, gen):
                           timed=False)
 
 
+def _edge_view(f, head):
+    """f's values in a view that ends at the end of its storage and
+    starts ``head`` floats into it, the floats before it NaN: a read
+    outside the factor that is not masked shows as NaN in W."""
+    store = torch.full((head + f.numel(),), float("nan"), device=f.device)
+    store[head:] = f.reshape(-1)
+    return store[head:].view(f.shape)
+
+
+def _compose_view_cases(record, gen):
+    """K5 and K6 on factors at odd ranks (7, 211: rows off 16-byte
+    boundaries) that end at the end of their storage, starting on a
+    16-byte boundary and one float past it: the copies' vectors that
+    cross either end of a factor read only the floats inside it. All
+    kinds, fp32 W (fp16 too for the stacked form)."""
+    for head in (0, 1):
+        for m, n, r in ((300, 130, 7), (100, 52, 211)):
+            fac = tuple(_edge_view(f, head) for f in _factors(gen, m, n, r))
+            for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+                _compose_case(record, f"view+{head} {m}x{n} r={r}", fac,
+                              kind, torch.float32, timed=False)
+        fac = tuple(_edge_view(f, head)
+                    for f in _client_factors(gen, 2, 96, 130, 9))
+        for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+            for dt in (torch.float32, torch.float16):
+                _compose_case(record, f"view+{head} L=2 96x130 r=9", fac,
+                              kind, dt, timed=False)
+
+
+# K5/K6's rank edges: one rank, one short of a k-step of 8, and ranks
+# past every rank the main path uses (505: gamma 0.3 at the MLP widths),
+# at the wk projection's full width
+COMPOSE_RANKS = (1, 7, 337, 505, 1100)
+
+
+def _compose_rank_cases(record, gen):
+    """K5 and K6 (2 layers) at ranks 1 to 1100 on the wk projection's
+    full width (4096 x 1024), every kind, fp32 and fp16 W: no rank is
+    refused."""
+    m, n, _ = SHAPES["wk"]
+    for r in COMPOSE_RANKS:
+        fac = _factors(gen, m, n, r)
+        stack = tuple(torch.stack([f, 0.5 * f.flip(0)]) for f in fac)
+        for f, what in ((fac, "K5"), (stack, "K6 L=2")):
+            for kind in ("fedpara", "fedpara_tanh", "pfedpara"):
+                for dt in (torch.float32, torch.float16):
+                    _compose_case(record, f"rank {what} {m}x{n} r={r}", f,
+                                  kind, dt, timed=False)
+        del fac, stack
+
+
 def _both_sides(fn, x, dy, fac, kind):
     """K4's function: (dX1, dX2, dY1, dY2), one call per side."""
     return (*fn(x, dy, *fac, side="x", kind=kind),
@@ -792,8 +857,8 @@ def _decode_ragged_cases(record, gen):
 def _repeat_checks(gen) -> dict:
     """Two launches give the same bits: K4 (2-D, a side whose sweep is
     split over blocks, with a client axis, and the large-rank form at
-    r = 1100) and K8's decode kernel
-    (split over blocks), each at full width; the split counts are
+    r = 1100), K8's decode kernel (split over blocks) and the compose
+    kernels K5 and K6, each at full width; the split counts are
     reported beside."""
     from repro_torch.kernels import fedpara_grad as fg
     from repro_torch.kernels import ops, serve_matmul as sm
@@ -826,6 +891,18 @@ def _repeat_checks(gen) -> dict:
     a = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
     b = _both_sides(ops.fedpara_dfactors, x, dy, fac, "fedpara")
     out["fedpara_dfactors_r1100"] = all(torch.equal(u, v) for u, v in zip(a, b))
+    # K5 at the gate projection (r = 211: rows at 4-byte offsets), fp32
+    # W; K6 on wk's factors stacked over 2 layers (r = 70), fp16 W
+    mg, ng, rg = SHAPES["w_gate"]
+    fac = _factors(gen, mg, ng, rg)
+    out["fedpara_compose"] = torch.equal(
+        ops.fedpara_compose(*fac, out_dtype=torch.float32),
+        ops.fedpara_compose(*fac, out_dtype=torch.float32))
+    fac = tuple(torch.stack([f, -f]) for f in _factors(gen, m, n, r))
+    out["fedpara_compose_stacked"] = torch.equal(
+        ops.fedpara_compose(*fac, kind="pfedpara", out_dtype=torch.float16),
+        ops.fedpara_compose(*fac, kind="pfedpara", out_dtype=torch.float16))
+    del fac
     q = quantize_int8(torch.randn((m, n), generator=gen, device="cuda"))
     xd = torch.randn((4, m), generator=gen, device="cuda").to(torch.bfloat16)
     out["w8_matmul_decode"] = torch.equal(ops.w8_matmul(xd, q["w_q"], q["scale"]),

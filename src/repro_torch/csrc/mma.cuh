@@ -1,9 +1,10 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a (inline PTX):
 // cp.async with zero fill (completed through mbarriers or groups),
 // mbarriers, ldmatrix (plain and transposed), mma.sync for TF32
-// (m16n8k8) and bf16 (m16n8k16) with fp32 accumulators, and the TF32
+// (m16n8k8) and bf16 (m16n8k16) with fp32 accumulators, the TF32
 // split behind the "3xTF32" products that keep fp32 accuracy on the
-// tensor cores.
+// tensor cores, and the warpgroup MMA (wgmma) in its TF32 form with
+// the shared-memory descriptor and fences it needs.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 / m16n8k16, .row.col), with
 // g = lane / 4 and c = lane % 4:
@@ -41,6 +42,14 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// The same 16-byte copy reading only the first `bytes` (0..16) bytes
+// of src and zero-filling the rest (cp.async's source size): a vector
+// that runs past the end of its tensor reads nothing past it.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 // The same 16-byte copy asking L2 to fetch the 256-byte block around
@@ -196,6 +205,80 @@ __device__ __forceinline__ void add_to(float (&acc)[N], float (&part)[N]) {
     acc[e] += part[e];
     part[e] = 0.f;
   }
+}
+
+// ---------------------------------------------------- warpgroup MMA
+// wgmma (sm_90a): a warpgroup of four warps issues one asynchronous
+// product of a 64-row tile. The kernels here use the TF32 form with A
+// in registers and B in shared memory, both K-major:
+//   A (64 x 8), per warp w of the group the mma.sync m16n8k8 TF32 A
+//     fragment of rows 16w..16w+15: a0 (g, c), a1 (g+8, c), a2 (g, c+4),
+//     a3 (g+8, c+4);
+//   B (N x 8), N rows of 8 fp32 values read through a descriptor;
+//   D (64 x N, fp32), per warp rows 16w..: d[4j+e] at row g + 8(e/2),
+//     column 8j + 2c + e%2.
+// The tensor core reads the top 19 bits of each 32-bit operand (TF32,
+// truncated), as mma.sync does, so the 3xTF32 split above carries over.
+
+// Shared-memory descriptor of a K-major operand in the 128-byte swizzle:
+// rows of 32 fp32 values (128 bytes), the 16-byte chunk c of row j
+// stored at chunk c ^ (j % 8), groups of 8 rows 1024 bytes apart, the
+// buffer 1024-byte aligned. addr is the shared address of the first row
+// plus 32 bytes per k-step of 8 values.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4)   // start address, 16-byte units
+         | ((uint64_t)1 << 16)                // leading offset (unused when swizzled)
+         | ((uint64_t)(1024 >> 4) << 32)      // stride between 8-row groups
+         | ((uint64_t)1 << 62);               // 128-byte swizzle
+}
+// float index of element (j, k < 32) of a rows-of-32 buffer in that swizzle
+__host__ __device__ __forceinline__ int sw128(int j, int k) {
+  return j * 32 + ((((k >> 2) ^ j) & 7) << 2) + (k & 3);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of r across a wgmma
+// fence, commit or wait: the asynchronous product owns r in between.
+template <int N>
+__device__ __forceinline__ void own_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128) = a·bᵀ + (scale_d ? d : 0), TF32, A in registers.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d));
 }
 
 }  // namespace mma

@@ -35,10 +35,13 @@ which pick it at each launch:
   in 3xTF32; grid = (ceil(P / rows), splits of the sweep, clients).
   Above rank 336 the factors are read from global memory rather than
   staged, and grid y also splits the output's rank into blocks of 512;
-* the CUDA-core compose of the compose kernels K5/K6
-  (``csrc/fedpara_compose.cu``, ``csrc/tiles.cuh``): 256 threads per
-  block, a (128 x 32) tile of W per block on grid (ceil(n / 32),
-  ceil(m / 128), layers), rank chunks of 32 (``RC``).
+* the compose kernels K5/K6 (``csrc/fedpara_compose.cu``) run on the
+  tensor cores (``wgmma`` m64n128k8 in 3xTF32): one persistent block of
+  384 threads per SM (two warpgroups that copy and compose 64 rows each,
+  one that splits Y into TF32 halves) walks every (layer, 128 x 128 tile
+  of W) of the launch; grid = min(tiles, SMs). Rank chunks of 32 stream
+  through a four-stage ring of shared memory (226,384 bytes a block), so
+  any rank runs.
 
 This module holds no code: the wrappers pass shapes, and the C entry
 points choose the block shape, grid and shared memory.

@@ -6,7 +6,10 @@ path's pre-composition (``serve/cache.py``, ``nn/layers.py::
 precompose_tree``). Factors (m, r) / (n, r) give (m, n) (K5, replacing
 ``repro/kernels/fedpara_compose.py:_kernel``); a leading axis, factors
 (L, m, r) / (L, n, r) (a layer-stacked node), gives (L, m, n) in one
-launch (K6, ``_kernel_batched``), the slab on grid axis z.
+launch (K6, ``_kernel_batched``): the kernel's persistent blocks walk
+every (layer, tile). The products run on the tensor cores in 3xTF32
+(``ref.fedpara_compose_tf32`` is the host twin of that arithmetic), at
+any rank.
 
 The launcher takes CUDA tensors only and launches unconditionally;
 ``repro_torch.kernels.ops`` dispatches between it and the plain version
@@ -20,12 +23,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fedpara_matmul import KIND_CODES
-from repro_torch.kernels.serve_matmul import check_status
+from repro_torch.kernels.serve_matmul import _sms, check_status
 
 OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def fedpara_compose(x1: torch.Tensor, y1, x2, y2, *, kind: str = "fedpara",
@@ -60,7 +63,15 @@ def fedpara_compose(x1: torch.Tensor, y1, x2, y2, *, kind: str = "fedpara",
     with torch.cuda.device(x1.device):
         err = fn(*(f.data_ptr() for f in fac), w.data_ptr(),
                  lead[0] if lead else 1, m, n, r, KIND_CODES[kind],
-                 OUT_CODES[out_dtype],
+                 OUT_CODES[out_dtype], _sms(x1.device),
                  torch.cuda.current_stream(x1.device).cuda_stream)
     check_status(err, "repro_fedpara_compose")
     return w
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory per block of the compose kernel, in bytes
+    (the same at every shape; ptxas reports static shared memory only)."""
+    fn = build.library("fedpara_compose").repro_fedpara_compose_smem_bytes
+    fn.restype = ctypes.c_size_t
+    return int(fn())

@@ -77,14 +77,18 @@ def _tf32_product(a, b, passes: int) -> torch.Tensor:
 
 
 def fedpara_compose_tf32(x1, y1, x2, y2, *, kind: str = "fedpara",
-                         passes: int = 3) -> torch.Tensor:
-    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) in fp32 with each rank-r product
-    taken as the fused matmul (``csrc/fedpara_matmul.cu``) takes it on
-    the tensor cores: ``passes=3`` is its 3xTF32 compose, ``passes=1`` a
-    single TF32 pass (the cheaper design it does not use)."""
+                         passes: int = 3, out_dtype=None) -> torch.Tensor:
+    """W = f1(X1 Y1ᵀ) ⊙ f2(X2 Y2ᵀ) with each rank-r product taken as
+    the fused matmul (``csrc/fedpara_matmul.cu``) and the compose kernels
+    K5/K6 (``csrc/fedpara_compose.cu``) take it on the tensor cores:
+    ``passes=3`` is their 3xTF32 compose, ``passes=1`` a single TF32
+    pass (the cheaper design they do not use). W is fp32, or rounded
+    once at the end to ``out_dtype``, as K5/K6 store it; (m, n), or
+    (L, m, n) for stacked factors."""
     w1 = _tf32_product(x1.float(), y1.float(), passes)
     w2 = _tf32_product(x2.float(), y2.float(), passes)
-    return _hadamard(w1, w2, kind)
+    w = _hadamard(w1, w2, kind)
+    return w if out_dtype is None else w.to(out_dtype)
 
 
 def w8_matmul_tf32(x, w, scale=None, *, passes: int = 2) -> torch.Tensor:

@@ -5,7 +5,9 @@ against the reference on the CPU.
   host tensor) against the reference's Pallas kernel in
   interpret mode at ``tests/test_kernels.py``'s shapes and
   ``tests/test_fl_batched.py``'s stacked one: atol = rtol = 1e-5, the
-  reference's own bound;
+  reference's own bound; the host twin of the kernels' 3xTF32
+  arithmetic (``ref.fedpara_compose_tf32``) likewise, and both against
+  fp64 at ranks up to 1100;
 * the serve caches and ``precompose_tree`` (bf16 and int8) against the
   reference's on reference-initialized params;
 * ``make_token_lm_dataset`` bit for bit;
@@ -37,7 +39,7 @@ from repro_torch import interop
 from repro_torch.configs import get_arch
 from repro_torch.data import make_token_lm_dataset
 from repro_torch.kernels import fedpara_compose as fc
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.nn.layers import precompose_tree
 from repro_torch.nn.transformer import ModelOptions, build_model
 from repro_torch.tree import tree_leaves
@@ -58,6 +60,16 @@ def _jax_compose(fac, kind):
                                      block_n=128)
     return jops.fedpara_compose(*fac, use_tanh=kind == "fedpara_tanh",
                                 interpret=True, block_m=128, block_n=128)
+
+
+def _jax_compose_to(fac, kind, out_dtype):
+    """:func:`_jax_compose` rounded once to ``out_dtype`` by the kernel."""
+    if kind == "pfedpara":
+        return jops.pfedpara_compose(*fac, interpret=True, block_m=128,
+                                     block_n=128, out_dtype=out_dtype)
+    return jops.fedpara_compose(*fac, use_tanh=kind == "fedpara_tanh",
+                                interpret=True, block_m=128, block_n=128,
+                                out_dtype=out_dtype)
 
 
 @pytest.mark.parametrize("m,n,r", [(64, 64, 4), (100, 52, 3), (256, 256, 16),
@@ -96,6 +108,73 @@ def test_compose_rounds_once_to_the_requested_type(dtype, jdtype):
     ulp = 2.0 ** (-10 if dtype == torch.float16 else -7)
     np.testing.assert_allclose(got.float().numpy(), want,
                                atol=1e-6, rtol=ulp)
+
+
+@pytest.mark.parametrize("m,n,r", [(64, 64, 4), (100, 52, 3), (300, 128, 9)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_compose_twin_matches_reference_kernel(m, n, r, kind):
+    """The host twin of K5's arithmetic (``ref.fedpara_compose_tf32``:
+    every factor split into TF32 halves, three passes, fp32 sums)
+    against the reference's Pallas compose in interpret mode at the
+    reference tests' ragged shapes: fp32 within the file's tolerance."""
+    fac = _factors(m + n + r, (), m, n, r, 0.2)
+    want = np.asarray(_jax_compose(fac, kind))
+    got = ref.fedpara_compose_tf32(*map(torch.from_numpy, fac), kind=kind)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, **COMPOSE_TOL)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_stacked_compose_twin_matches_reference_kernel(kind):
+    """K6's arithmetic on a stack of 3 layers at 96 x 130, r = 5."""
+    fac = _factors(11, (3,), 96, 130, 5, 1.0)
+    want = np.asarray(_jax_compose(fac, kind))
+    got = ref.fedpara_compose_tf32(*map(torch.from_numpy, fac), kind=kind)
+    assert tuple(got.shape) == (3, 96, 130)
+    np.testing.assert_allclose(got.numpy(), want, **COMPOSE_TOL)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_compose_twin_rounds_once_to_fp16(kind):
+    """The twin rounds W once, to fp16, at the end, as K5/K6 store it:
+    the reference's code or the neighbouring one where the two fp32 sums
+    straddle a rounding boundary (as in
+    ``test_compose_rounds_once_to_the_requested_type``)."""
+    fac = _factors(5, (3,), 100, 52, 3, 0.5)
+    want = np.asarray(_jax_compose_to(fac, kind, jnp.float16)
+                      ).astype(np.float32)
+    got = ref.fedpara_compose_tf32(*map(torch.from_numpy, fac), kind=kind,
+                                   out_dtype=torch.float16)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-6,
+                               rtol=2.0 ** -10)
+
+
+def _compose_f64(fac, kind):
+    d = [f.double() for f in fac]
+    return ref._hadamard(d[0] @ d[1].mT, d[2] @ d[3].mT, kind)
+
+
+@pytest.mark.parametrize("r", [1, 337, 505, 1100])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["2d", "stacked"])
+def test_compose_wrapper_takes_any_rank(lead, r):
+    """K5/K6's wrapper takes every rank (γ = 0.3 gives r = 505 at
+    qwen3-8b's MLP widths): the card's kernel streams the rank through
+    its ring in chunks of 32, and no rank is refused. On the host the
+    wrapper is the plain version, and the twin is the kernel's 3xTF32
+    arithmetic; both hold to an fp64 compose at fp32 accuracy (1e-5),
+    every kind, with and without a leading axis."""
+    rng = np.random.default_rng(r + len(lead))
+    m, n = 20, 13
+    fac = [torch.from_numpy((rng.standard_normal((*lead, d, r)) / np.sqrt(r))
+                            .astype(np.float32)) for d in (m, n, m, n)]
+    for kind in KINDS:
+        want = _compose_f64(fac, kind)
+        for got in (ops.fedpara_compose(*fac, kind=kind),
+                    ref.fedpara_compose_tf32(*fac, kind=kind)):
+            assert got.shape == want.shape and got.dtype == torch.float32
+            err = float((got.double() - want).abs().max() / want.abs().max())
+            assert err < 1e-5, (kind, err)
 
 
 def test_compose_launches_count_only_on_the_card():
