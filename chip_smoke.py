@@ -3,10 +3,11 @@
 Drives the port's paths (``repro_torch``) on the card through its
 hand-written CUDA kernels: serving at qwen3-8b's full width, FL
 training of the paper's MLP at its full width through the sequential,
-batched and streaming engines, and the checkpoint -> serve path of a
-full-width pFedPara federation; holds every kernel against its plain
-PyTorch version. Phases, each printed on its own line; any failed check
-raises, so the script exits non-zero:
+batched and streaming engines (identity codecs, then the wire codecs),
+and the checkpoint -> serve path of a full-width pFedPara federation;
+holds every kernel against its plain PyTorch version. Phases, each
+printed on its own line; any failed check raises, so the script exits
+non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
    one process per source, all at once); print the build time, the
@@ -75,8 +76,21 @@ raises, so the script exits non-zero:
     checkpoint: the global model through its int8 (K5) and fp16 (K6)
     caches against fused, the 2 users through K10 and fused against
     merge-then-plain;
-11. the ``{"kernels": [...]}`` line (K8 twice: its decode and its
-    prefill shape), then the closing ``{"ok": true}``.
+11. the FL wire codecs (:func:`phase_codecs`): 3 MLP rounds with
+    ``--uplink-codec "delta|topk0.1|int8" --downlink-codec fp16`` (50
+    clients; batched on the card and on the host through one noise
+    source drawn on the host, streaming on the card: K7 on int8 wire),
+    ``"delta|lowrank0.25"`` / ``delta`` (20 clients, sequential, card
+    against host) and ``fp16`` / ``"delta|int8"`` (50 clients,
+    streaming against batched on the card: K7 on fp16 wire); the card's
+    default int8 noise unbiased on one qwen3-8b layer's factors
+    (27,418,624 floats); the codec step on the card against the host
+    bit for bit; one timed encode of that payload per stage; the
+    Prop.-3 conv compose at VGG16's widest conv (512 -> 512, 3x3,
+    gamma 0.1) against the host, and one ``F.conv2d`` forward;
+12. the ``{"kernels": [...]}`` line (K8 twice: its decode and its
+    prefill shape; K7 once per wire type, each with its launches on
+    that wire), then the closing ``{"ok": true}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--quick`` builds and checks the kernels at two shapes and stops;
@@ -87,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -986,9 +1001,9 @@ def _agg_cases(record, gen, quick):
     fp16 and fp32 wire, timed, ``torch.addmv`` on the fp32 stack as the
     yardstick; then a ragged length read through an unaligned view, zero
     coefficients (which must add exact zeros), and the MLP's leaves at
-    the streaming phase's chunk of 3 clients (fp32, the identity
-    codec's wire). Tolerance 1e-5 relative: fp32 sums of 16 terms in
-    another order."""
+    the streaming phase's chunk of 3 clients on int8 (scale folded into
+    the coefficient), fp16 and fp32 wire. Tolerance 1e-5 relative: fp32
+    sums of 16 terms in another order."""
     from repro_torch.kernels import ops, ref
 
     C = AGG_CLIENTS
@@ -1030,19 +1045,26 @@ def _agg_cases(record, gen, quick):
     half = ops.dequant_acc(acc0.clone(), q[: C // 2], coeff[: C // 2])
     check(torch.equal(ops.dequant_acc(acc0.clone(), q, pad), half),
           "dequant_acc: pad slots with coefficient 0 changed the sum")
-    # the MLP's leaves at the streaming phase's chunk (identity wire)
+    # the MLP's leaves at the streaming phase's chunk of 3 clients, on
+    # each wire: int8 q with each client's scale folded into its
+    # coefficient (as tree_dequant_acc folds it), fp16 and fp32
+    w = torch.tensor([40.0, 12.0, 0.0], device="cuda")
     for name, shape in (("fc1.x1", (784, 40)), ("fc1.y1", (256, 40)),
                         ("b1", (256,)), ("fc2.y1", (10, 4)), ("b2", (10,))):
-        q = torch.randn((3, *shape), generator=gen, device="cuda")
+        x = torch.randn((3, *shape), generator=gen, device="cuda")
         acc0 = torch.randn(shape, generator=gen, device="cuda")
-        work = acc0.clone()
-        w = torch.tensor([40.0, 12.0, 0.0], device="cuda")
-        record("dequant_acc", f"mlp {name} C=3 fp32",
-               lambda q=q, work=work, w=w: ops.dequant_acc(
-                   work.view(-1), q.reshape(3, -1), w),
-               lambda q=q, acc0=acc0, w=w: ref.dequant_acc_ref(
-                   acc0.view(-1), q.reshape(3, -1), w), None, 1e-5,
-               (4 * 3 + 8) * acc0.numel(), timed=False)
+        scale = x.reshape(3, -1).abs().amax(1) / 127.0
+        q8 = torch.round(x / scale.reshape(3, *(1,) * len(shape))).to(
+            torch.int8)
+        for qname, q, cf in (("int8", q8, w * scale), ("fp16", x.half(), w),
+                             ("fp32", x, w)):
+            work = acc0.clone()
+            record("dequant_acc", f"mlp {name} C=3 {qname}",
+                   lambda q=q, work=work, cf=cf: ops.dequant_acc(
+                       work.view(-1), q.reshape(3, -1), cf),
+                   lambda q=q, acc0=acc0, cf=cf: ref.dequant_acc_ref(
+                       acc0.view(-1), q.reshape(3, -1), cf), None, 1e-5,
+                   (q.element_size() * 3 + 8) * acc0.numel(), timed=False)
 
 
 # ------------------------------------------------------------ phases 3-6
@@ -1509,7 +1531,7 @@ def phase_engines(measurements):
                                        "--client-chunk", "3"])):
         ops.reset_launches()
         runs[name] = train.main(argv + extra)
-        counts[name] = ops.launches()
+        counts[name] = _counts()
     host = train.main(argv + ["--engine", "batched", "--device", "cpu"])
     for kernel in ("fedpara_matmul_clients", "fedpara_dx_clients",
                    "fedpara_dfactors_clients"):
@@ -1544,6 +1566,267 @@ def phase_engines(measurements):
     measurements["engines"] = out
     return {k: counts["batched"][k] + counts["streaming"][k]
             for k in counts["batched"]}
+
+
+def _counts() -> dict:
+    """The launch counts since the last reset, K7's also by wire type
+    (keys ``dequant_acc:int8`` / ``:fp16`` / ``:fp32``)."""
+    from repro_torch.kernels import ops
+
+    return {**ops.launches(), **{f"dequant_acc:{w}": n for w, n
+                                 in ops.wire_launches().items()}}
+
+
+def _host_noise(round_idx, position, like):
+    """An int8 noise source drawn on the host (U[-0.5, 0.5) from a CPU
+    generator seeded from (round, position)), handed to the card and the
+    host runs alike through ``train.main(quant_noise=...)``."""
+    from repro_torch.fl import comm
+    from repro_torch.tree import tree_map
+
+    shapes = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype), like)
+    return comm.position_noise(shapes, round_idx, position, "cpu")
+
+
+def _close_rounding(a, b, what: str) -> dict:
+    """Two runs of a codec that rounds or selects: records equal (masks,
+    clients, bytes), each round's mean loss within 1e-3 relative and
+    each global leaf within 1e-3 relative Frobenius norm (a last-bit
+    difference in training moves an int8 value by a whole step or swaps
+    a top-k entry). Returns the largest differences."""
+    from repro_torch.tree import tree_leaves
+
+    _same_rounds(a, b, what)
+    loss_rel = max(abs(ra["mean_loss"] - rb["mean_loss"])
+                   / abs(ra["mean_loss"]) for ra, rb in
+                   zip(a["server"].history, b["server"].history))
+    check(loss_rel <= 1e-3, f"{what}: mean_loss differs by {loss_rel} rel")
+    leaf_rel = max(float((x.cpu() - y.cpu()).norm() / x.cpu().norm())
+                   for x, y in zip(tree_leaves(a["server"].global_params),
+                                   tree_leaves(b["server"].global_params)))
+    check(leaf_rel <= 1e-3, f"{what}: params differ by {leaf_rel} rel")
+    return {"loss_rel": loss_rel, "param_rel": leaf_rel,
+            "param_maxdiff": _param_maxdiff(a, b),
+            "eval_diff": abs(a["record"]["eval"] - b["record"]["eval"])}
+
+
+def _agg_payload(gen):
+    """One qwen3-8b layer's FedPara factors (AGG_L floats), on the card."""
+    return {name: {k: torch.randn((m if k[0] == "x" else n, r),
+                                  generator=gen, device="cuda")
+                   for k in ("x1", "y1", "x2", "y2")}
+            for name, (m, n, r) in SHAPES.items()}
+
+
+def _codec_checks(card: str) -> dict:
+    """Phase 11's checks off the training path: the card's default int8
+    noise on AGG_L floats (unbiased, every error within one scale); the
+    codec step on the card against the host on one tie-free client
+    stack and one injected noise (top-k indices, int8 q and scales
+    equal); each stage's encode of the AGG_L payload timed once; the
+    Prop.-3 conv compose of fedpara and lowrank at VGG16's widest conv
+    against the host, and one F.conv2d forward."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import rank_policy, tensor_fedpara
+    from repro_torch.fl import codecs, comm
+    from repro_torch.fl.strategies import tree_stack
+    from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_to
+
+    out = {}
+    gen = torch.Generator("cuda").manual_seed(11)
+    # the server's default noise (round 2, position 5), drawn on the card
+    x = {"w": torch.randn((AGG_L,), generator=gen, device="cuda")}
+    noise = comm.position_noise(x, 2, 5, "cuda")
+    wire = comm.quantize_int8(x, noise)
+    err = comm.dequantize_int8(wire)["w"] - x["w"]
+    scale = float(wire["w"]["scale"])
+    mean, worst = float(err.double().mean()), float(err.abs().max())
+    sigma = 0.5 * scale / AGG_L ** 0.5   # stochastic rounding: sd <= s/2
+    check(worst <= scale, f"int8 round trip error {worst} > scale {scale}")
+    check(abs(mean) <= 4 * sigma, f"int8 round trip biased: mean error "
+          f"{mean}, 4 sigma {4 * sigma}")
+    out["int8_noise"] = {"floats": AGG_L, "mean_err": mean, "sigma": sigma,
+                         "max_abs_err": worst, "scale": scale}
+    del x, noise, wire, err
+    # the codec step, card against host: 8 clients of the MLP's upload,
+    # tie-free (each client's magnitudes distinct, so top-k is unique)
+    cgen = torch.Generator().manual_seed(12)
+
+    def distinct(*shape):
+        n = shape[0] * math.prod(shape[1:])
+        mag = (torch.randperm(n, generator=cgen).float() + 1.0) / n
+        sign = torch.randint(0, 2, (n,), generator=cgen).float() * 2 - 1
+        return (mag * sign).reshape(shape)
+
+    up = {"fc1": {k: distinct(8, *s) for k, s in
+                  (("x1", (784, 40)), ("y1", (256, 40)), ("x2", (784, 40)),
+                   ("y2", (256, 40)))},
+          "b1": distinct(8, 256)}
+    ref = tree_map(lambda a: torch.zeros_like(a[0]), up)
+    ef = tree_map(torch.zeros_like, up)
+    codec = codecs.make_codec("delta|topk0.1|int8")
+
+    def stacked_noise(like):
+        return tree_stack([_host_noise(3, i, tree_index(like, i))
+                           for i in range(8)])
+
+    def step(dev):
+        wire, new_ef = codec.encode(
+            tree_to(up, dev), ref=tree_to(ref, dev), ef=tree_to(ef, dev),
+            noise=lambda like: tree_to(stacked_noise(like), dev),
+            stacked=True)
+        return tree_to(wire, "cpu"), tree_to(new_ef, "cpu")
+
+    (wc, ec), (wh, eh) = step("cuda"), step("cpu")
+    for a, b in zip(tree_leaves(wc), tree_leaves(wh)):
+        check(torch.equal(a, b), f"codec step: card and host wires differ "
+              f"({a.dtype} {tuple(a.shape)}: {int((a != b).sum())} values)")
+    ef_d = max(float((a - b).abs().max())
+               for a, b in zip(tree_leaves(ec), tree_leaves(eh)))
+    check(ef_d <= 1e-6, f"codec step: error feedback differs by {ef_d}")
+    out["codec_step_card_vs_host"] = {"wire": "bitwise", "ef_maxdiff": ef_d}
+    # one timed encode of the AGG_L payload per stage (CUDA events)
+    payload = _agg_payload(gen)
+    zeros = tree_map(torch.zeros_like, payload)
+    times = {}
+    for spec in ("delta", "topk0.1", "lowrank0.25", "int8", "fp16",
+                 "delta|topk0.1|int8"):
+        c = codecs.make_codec(spec)
+        kw = dict(ref=zeros, ef=c.ef_init(payload),
+                  noise=lambda like: comm.uniform_noise(
+                      like, torch.Generator("cuda").manual_seed(0)))
+        c.encode(payload, **kw)          # warm-up (library handles)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        c.encode(payload, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        times[spec] = a.elapsed_time(b)
+    out["encode_ms"] = {"payload_floats": AGG_L, "card": card, **times}
+    del payload, zeros
+    # Prop.-3 conv at VGG16's widest layer, card against host
+    o = i = 512
+    r = rank_policy.conv_rank_for_gamma(o, i, 3, 3, 0.1)
+    conv = {}
+    hgen = torch.Generator().manual_seed(13)
+    xin = torch.randn((2, i, 14, 14), generator=hgen)
+    for kind in ("fedpara", "lowrank"):
+        node = tensor_fedpara.init_conv(hgen, o, i, 3, 3, kind=kind,
+                                        gamma=0.1)
+        wh_ = tensor_fedpara.materialize_conv(node, kind)
+        wc_ = tensor_fedpara.materialize_conv(tree_to(node, "cuda"),
+                                              kind).cpu()
+        rel = float((wc_ - wh_).norm() / wh_.norm())
+        check(rel <= 1e-5, f"conv compose {kind}: card vs host {rel} rel")
+        yh = F.conv2d(xin, wh_, padding=1)
+        yc = F.conv2d(xin.cuda(), wc_.cuda(), padding=1).cpu()
+        check(bool(torch.isfinite(yc).all()), f"conv2d {kind}: non-finite")
+        yrel = float((yc - yh).norm() / yh.norm())
+        check(yrel <= 1e-4, f"conv2d {kind}: card vs host {yrel} rel")
+        conv[kind] = {"rank": int(node["x1" if kind == "fedpara"
+                                       else "x"].shape[1]),
+                      "compose_rel": rel, "conv2d_rel": yrel}
+    out["conv"] = conv
+    return out
+
+
+def phase_codecs(card: str, measurements):
+    """The FL wire codecs on the card: ``launch/train.py --mode fl
+    --model mlp --rounds 3 --use-kernels --lr 0.05`` from
+    :func:`_mlp_init`'s weights,
+
+    (a) ``--clients 50 --uplink-codec "delta|topk0.1|int8"
+        --downlink-codec fp16``: ``--engine batched`` on the card and on
+        the host through one noise source drawn on the host, and
+        ``--engine streaming --client-chunk 3`` on the card (K7 on int8
+        wire), each held to the card's batched run;
+    (b) ``--clients 20 --engine sequential --uplink-codec
+        "delta|lowrank0.25" --downlink-codec delta`` on the card and on
+        the host (a codec that neither rounds nor selects:
+        :func:`_card_vs_host`'s 1e-4);
+    (c) ``--clients 50 --engine streaming --client-chunk 3
+        --uplink-codec fp16 --downlink-codec "delta|int8"`` (K7 on fp16
+        wire, the card's own noise) held to the same run with
+        ``--engine batched`` on the card.
+
+    Masks, clients and bytes are equal in every comparison, the rounding
+    runs as :func:`_close_rounding` says; run (a)'s uplink bytes fall
+    below phase 9's identity run; K1, K3, K4 and their client forms
+    launch, and K7 on int8 and fp16 wire. Then :func:`_codec_checks`.
+    Returns the card runs' summed launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    init, path = _mlp_init()
+    base = ["--mode", "fl", "--model", "mlp", "--rounds", "3",
+            "--use-kernels", "--lr", "0.05", "--init-params", str(path)]
+    a_argv = base + ["--clients", "50", "--uplink-codec",
+                     "delta|topk0.1|int8", "--downlink-codec", "fp16"]
+    b_argv = base + ["--clients", "20", "--engine", "sequential",
+                     "--uplink-codec", "delta|lowrank0.25",
+                     "--downlink-codec", "delta"]
+    c_argv = base + ["--clients", "50", "--uplink-codec", "fp16",
+                     "--downlink-codec", "delta|int8"]
+    stream = ["--engine", "streaming", "--client-chunk", "3"]
+    plan = {"a_batched": (a_argv + ["--engine", "batched"], _host_noise),
+            "a_streaming": (a_argv + stream, _host_noise),
+            "b_sequential": (b_argv, None),
+            "c_streaming": (c_argv + stream, None),
+            "c_batched": (c_argv + ["--engine", "batched"], None)}
+    runs, counts = {}, {}
+    for name, (argv, noise) in plan.items():
+        ops.reset_launches()
+        runs[name] = train.main(argv, quant_noise=noise)
+        counts[name] = _counts()
+    host = {"a_batched": train.main(a_argv + ["--engine", "batched",
+                                              "--device", "cpu"],
+                                    quant_noise=_host_noise),
+            "b_sequential": train.main(b_argv + ["--device", "cpu"])}
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["a_batched"]}
+    for kernel in ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors",
+                   "fedpara_matmul_clients", "fedpara_dx_clients",
+                   "fedpara_dfactors_clients"):
+        check(total[kernel] > 0, f"{kernel} never launched in phase 11")
+    check(counts["a_streaming"]["dequant_acc:int8"] > 0,
+          "K7 never read int8 wire in run (a)")
+    check(counts["c_streaming"]["dequant_acc:fp16"] > 0,
+          "K7 never read fp16 wire in run (c)")
+    diffs = {
+        "a_card_vs_host": _close_rounding(runs["a_batched"],
+                                          host["a_batched"],
+                                          "(a) card vs host"),
+        "a_streaming_vs_batched": _close_rounding(
+            runs["a_streaming"], runs["a_batched"],
+            "(a) streaming vs batched"),
+        "b_card_vs_host": _card_vs_host(runs["b_sequential"],
+                                        host["b_sequential"], init),
+        "c_streaming_vs_batched": _close_rounding(
+            runs["c_streaming"], runs["c_batched"],
+            "(c) streaming vs batched")}
+    identity_up = measurements["engines"]["record_batched"]["comm_up_mb"]
+    a_up = runs["a_batched"]["record"]["comm_up_mb"]
+    check(a_up < identity_up, f"(a) uplink {a_up} MB not below the "
+          f"identity run's {identity_up} MB")
+    out = {"card": card, "diffs": diffs, "launches": counts,
+           "up_mb": {"a": a_up, "identity_phase9": identity_up,
+                     "b": runs["b_sequential"]["record"]["comm_up_mb"],
+                     "c": runs["c_streaming"]["record"]["comm_up_mb"]},
+           "down_mb": {k: r["record"]["comm_down_mb"]
+                       for k, r in runs.items()},
+           "records": {k: r["record"] for k, r in runs.items()},
+           "round_seconds": {**{f"{k}_card": r["round_seconds"]
+                                for k, r in runs.items()},
+                             **{f"{k}_host": r["round_seconds"]
+                                for k, r in host.items()}},
+           "round_profile_a_streaming": _profile(
+               runs["a_streaming"]["server"].run_round),
+           **_codec_checks(card)}
+    say("fl_codecs", **out)
+    measurements["codecs"] = out
+    return total
 
 
 # ------------------------------------------------------------ phase 10
@@ -1794,7 +2077,8 @@ def _case(cases, kernel, name):
 def _summary(sums, launches, cases):
     """One entry per kernel and main-path shape: the numbers of one
     layer's worth of its main-path calls (sums over the layer's
-    projections); K8 has its decode and its prefill entry."""
+    projections); K8 has its decode and its prefill entry, K7 one per
+    wire type (fp32, int8, fp16), each with its own launches."""
     cl = f"{CLIENTS} clients x {CLIENT_ROWS} rows, bf16"
     plan = [
         ("w8_matmul", "rows=4 int8",
@@ -1818,8 +2102,17 @@ def _summary(sums, launches, cases):
         ("fedpara_dfactors_clients", f"C={CLIENTS}x{CLIENT_ROWS} fedpara",
          f"one layer's 7 projections, {cl}, both sides"),
         ("dequant_acc", f"layer C={AGG_CLIENTS} L={AGG_L} fp32",
-         f"{AGG_CLIENTS} clients' fp32 (identity-codec) wire over one "
-         "qwen3-8b layer's FedPara factors, one launch"),
+         f"{AGG_CLIENTS} clients' fp32 (identity- or low-rank-codec) wire "
+         "over one qwen3-8b layer's FedPara factors, one launch; launches "
+         "on fp32 wire"),
+        ("dequant_acc", f"layer C={AGG_CLIENTS} L={AGG_L} int8",
+         f"{AGG_CLIENTS} clients' int8 wire (an int8 uplink codec) over one "
+         "qwen3-8b layer's FedPara factors, one launch; launches on int8 "
+         "wire"),
+        ("dequant_acc", f"layer C={AGG_CLIENTS} L={AGG_L} fp16",
+         f"{AGG_CLIENTS} clients' fp16 wire (an fp16 uplink codec) over one "
+         "qwen3-8b layer's FedPara factors, one launch; launches on fp16 "
+         "wire"),
         ("fedpara_compose", "fp32 fedpara",
          "one layer's 7 projections composed to fp32 W (the int8 cache's "
          "compose), one launch each"),
@@ -1830,9 +2123,12 @@ def _summary(sums, launches, cases):
     out = []
     for kernel, key, at in plan:
         tot = sums[kernel].get(key) or _case(cases, kernel, key)
+        # K7's entries count the launches on their own wire type
+        count = (launches[f"dequant_acc:{key.split()[-1]}"]
+                 if kernel == "dequant_acc" else launches[kernel])
         out.append({"name": kernel, "route": "cuda",
                     "source": SOURCES[kernel], "replaces": REPLACES[kernel],
-                    "launches": launches[kernel],
+                    "launches": count,
                     "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
                     "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                     "bound_by": tot["bound_by"],
@@ -1868,6 +2164,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         params = seeded_params(_cfg("fedpara", 36), 0, "cuda")
         launches = {k: 0 for k in ops.KERNELS}
+        launches.update({f"dequant_acc:{w}": 0 for w in ops.WIRE_LAUNCHES})
         for phase in (phase_serve, phase_parity):
             for k, v in phase(params, measurements).items():
                 launches[k] += v
@@ -1886,7 +2183,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         for k, v in phase_checkpoint_serve(card, measurements).items():
             launches[k] += v
-        missing = [k for k in ops.KERNELS if launches[k] == 0]
+        torch.cuda.empty_cache()
+        for k, v in phase_codecs(card, measurements).items():
+            launches[k] += v
+        missing = [k for k, v in launches.items() if v == 0]
         check(not missing, f"kernels never launched on the main path: "
               f"{missing}")
         measurements["layer_sums"] = _layer_sums(cases)

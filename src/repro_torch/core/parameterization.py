@@ -1,9 +1,11 @@
-"""Weight parameterizations: FedPara, original and pFedPara (PyTorch).
+"""Weight parameterizations: FedPara, conventional low-rank, original and
+pFedPara (PyTorch).
 
 Key-name conventions, identical to the reference package so that trees
 carry across (``repro_torch.interop``):
 
   original : {"w"}
+  lowrank  : {"x", "y"}                      W = X Yᵀ
   fedpara  : {"x1", "y1", "x2", "y2"}        W = (X1Y1ᵀ) ⊙ (X2Y2ᵀ)
   pfedpara : {"x1", "y1", "x2", "y2"}        W = (X1Y1ᵀ) ⊙ (X2Y2ᵀ + 1)
 
@@ -49,6 +51,15 @@ def init_original(gen: torch.Generator, m: int, n: int,
     return {"w": _randn(gen, (m, n), device, (2.0 / m) ** 0.5)}
 
 
+def init_lowrank(gen: torch.Generator, m: int, n: int, r: int,
+                 device="cpu") -> ParamTree:
+    """Low-rank baseline ``{"x": (m, r), "y": (n, r)}`` with W = X Yᵀ,
+    factor std chosen so the composed W matches He variance."""
+    std = lowrank_factor_std(m, r)
+    return {"x": _randn(gen, (m, r), device, std),
+            "y": _randn(gen, (n, r), device, std)}
+
+
 def init_fedpara(gen: torch.Generator, m: int, n: int, r: int,
                  device="cpu") -> ParamTree:
     """FedPara factors ``{"x1"/"x2": (m, r), "y1"/"y2": (n, r)}``."""
@@ -80,6 +91,12 @@ def _outer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, y.transpose(-1, -2))
 
 
+def compose_lowrank(params: ParamTree, dtype=None) -> torch.Tensor:
+    """W = X Yᵀ for ``{"x": (..., m, r), "y": (..., n, r)}`` -> (..., m, n);
+    the factors are cast before the product."""
+    return _outer(_cast(params["x"], dtype), _cast(params["y"], dtype))
+
+
 def compose_fedpara(params: ParamTree, dtype=None,
                     use_tanh: bool = False) -> torch.Tensor:
     """W = (X1 Y1ᵀ) ⊙ (X2 Y2ᵀ)   (optionally tanh(W1)⊙tanh(W2), supp. B)."""
@@ -97,29 +114,27 @@ def compose_pfedpara(params: ParamTree, dtype=None) -> torch.Tensor:
     return w1 * (w2 + 1.0)
 
 
-def resolve_rank(m: int, n: int, gamma: float, rank: Optional[int]) -> int:
-    """Explicit ``rank`` or the paper's policy rank for ``gamma``."""
+def resolve_rank(m: int, n: int, kind: str, gamma: float,
+                 rank: Optional[int]) -> int:
+    """Explicit ``rank`` or the paper's policy rank for ``gamma`` (the
+    FedPara inner rank, whatever the kind: :func:`init_linear` doubles
+    it for the low-rank baseline)."""
     if rank is not None:
         return rank
     return rank_policy.matrix_rank_for_gamma(m, n, gamma)
 
 
-def _refuse_lowrank(kind: str) -> None:
-    """The reference's low-rank kind is not ported yet: refuse it by its
-    ROADMAP item, as every other unported setting is refused."""
-    if kind == "lowrank":
-        raise NotImplementedError("parameterization kind 'lowrank' is not "
-                                  "ported yet: ROADMAP A2")
-
-
 def init_linear(gen: torch.Generator, m: int, n: int, *,
                 kind: str = "fedpara", gamma: float = 0.1,
                 rank: Optional[int] = None, device="cpu") -> ParamTree:
-    """Initialize one parameterized (m -> n) weight."""
+    """Initialize one parameterized (m -> n) weight. ``rank=None``
+    resolves the inner rank from ``gamma``; the low-rank baseline takes
+    ``2r`` (parameter parity with FedPara at inner rank ``r``)."""
     if kind == "original":
         return init_original(gen, m, n, device)
-    _refuse_lowrank(kind)
-    r = resolve_rank(m, n, gamma, rank)
+    r = resolve_rank(m, n, kind, gamma, rank)
+    if kind == "lowrank":
+        return init_lowrank(gen, m, n, 2 * r, device)
     if kind in ("fedpara", "fedpara_tanh"):
         return init_fedpara(gen, m, n, r, device)
     if kind == "pfedpara":
@@ -131,13 +146,14 @@ def materialize(params: ParamTree, kind: str, dtype=None) -> torch.Tensor:
     """Compose the dense weight for the given parameterization kind."""
     if kind == "original":
         return _cast(params["w"], dtype)
+    if kind == "lowrank":
+        return compose_lowrank(params, dtype)
     if kind == "fedpara":
         return compose_fedpara(params, dtype, use_tanh=False)
     if kind == "fedpara_tanh":
         return compose_fedpara(params, dtype, use_tanh=True)
     if kind == "pfedpara":
         return compose_pfedpara(params, dtype)
-    _refuse_lowrank(kind)
     raise ValueError(f"unknown parameterization kind: {kind}")
 
 

@@ -4,7 +4,7 @@ and ``client_step_count`` (the sequential engine), and the eager
 client stack ``stack_client_epochs`` with ``_client_steps``,
 ``_pad_batch`` and ``_fill_row`` (the batched and streaming engines).
 The chunked sources of the streaming engine (``ChunkBatchSource``,
-``VirtualPartitions``) are not ported yet (ROADMAP A10)."""
+``VirtualPartitions``) are not ported yet (ROADMAP A4)."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple

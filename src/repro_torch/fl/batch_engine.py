@@ -19,13 +19,17 @@ together:
      and K4 backward), not C launches;
   3. payload selection (none / pfedpara / fedper / local) as tree
      restructuring on the stacked tree;
-  4. the identity uplink codec (the other codecs are ROADMAP A7);
+  4. the uplink codec on the client stack (``Codec.encode_decode`` /
+     ``encode_for_agg`` with ``stacked=True``): delta against the
+     round's decoded broadcast, top-k with the client-stacked error
+     feedback in ``stacked_state["_ef_up"]``, low-rank, int8 (one scale
+     per client, its noise drawn per sampled position) and fp16;
   5. a masked weighted mean over the client axis (the arrived-mask
      gives a client that did not arrive weight 0) and the strategy's
      ``server_update``.
 
 Ported for homogeneous ranks with defense ``none``; rank tiers, faults
-and defenses (A11), the arena store (A10) and meshes (A15) are not.
+and defenses (A5), the arena store (A4) and meshes (A8) are not.
 """
 from __future__ import annotations
 
@@ -122,27 +126,30 @@ def chunk_round_program(stacked_params: Any, stacked_state: Dict,
                         strategy_name: str, personalization: str,
                         fedper_local_keys: Tuple[str, ...],
                         uplink_codec: Codec, lr,
-                        encoded_upload: bool = False):
+                        encoded_upload: bool = False, noise: Any = None):
     """One chunk of clients: local epochs, payload selection, per-client
     uplink encoding; the shared core of the batched round (chunk = the
     whole cohort) and of every streaming step (chunk = ``client_chunk``
-    clients). ``encoded_upload`` asks for the codec's encoded-for-
-    aggregation form (``Codec.encode_for_agg``) instead of the decoded
-    upload; for the identity codec, the only one ported, both are the
-    upload itself. Returns ``(new_params, new_state, upload, local,
-    last_loss, n_steps)``, all stacked along the chunk's client axis."""
-    if not uplink_codec.is_identity:
-        raise NotImplementedError(
-            f"uplink codec {uplink_codec.spec!r}: only the identity codec "
-            "is ported (ROADMAP A7)")
+    clients). The codec encodes the stacked uploads against the round's
+    decoded broadcast ``down_payload``, its error feedback threaded
+    through ``stacked_state["_ef_up"]``; ``noise`` is the int8 stage's
+    noise source for the stack (``Codec.encode``). ``encoded_upload``
+    asks for the encoded-for-aggregation form (``Codec.encode_for_agg``)
+    instead of the decoded upload. Returns ``(new_params, new_state,
+    upload, local, last_loss, n_steps)``, all stacked along the chunk's
+    client axis."""
     new_p, new_state, last_loss, n_steps = batched_local_update(
         stacked_params, stacked_state, batches, step_mask, loss_fn,
         client_cfg, strategy_name, lr)
     upload, local = select_upload(new_p, personalization, fedper_local_keys)
+    codec = uplink_codec
     if upload is not None:
-        enc = (uplink_codec.encode_for_agg if encoded_upload
-               else uplink_codec.encode_decode)
-        upload, _ = enc(upload, ref=down_payload)
+        enc = codec.encode_for_agg if encoded_upload else codec.encode_decode
+        upload, new_ef = enc(upload, ref=down_payload,
+                             ef=new_state.get("_ef_up"), noise=noise,
+                             stacked=True)
+        if codec.has_ef:
+            new_state = {**new_state, "_ef_up": new_ef}
     return new_p, new_state, upload, local, last_loss, n_steps
 
 
@@ -165,10 +172,12 @@ class ClientBatch:
             self.uplink_codec = make_codec("")
 
     def run(self, stacked_params, stacked_state, batches, step_mask,
-            arrived_mask, sizes, lr, server_state, agg_target, down_payload):
+            arrived_mask, sizes, lr, server_state, agg_target, down_payload,
+            noise=None):
         """Execute one round. ``arrived_mask`` and ``sizes`` are (C,)
         float32; a client that did not arrive trains but carries
-        aggregation weight 0. Returns ``(new_params, new_state, upload,
+        aggregation weight 0; ``noise`` is the uplink int8 stage's noise
+        source for the stack. Returns ``(new_params, new_state, upload,
         local, last_loss, n_steps, new_global, new_server_state)``."""
         new_p, new_state, upload, local, last_loss, n_steps = \
             chunk_round_program(
@@ -178,7 +187,7 @@ class ClientBatch:
                 strategy_name=self.strategy.name,
                 personalization=self.personalization,
                 fedper_local_keys=self.fedper_local_keys,
-                uplink_codec=self.uplink_codec, lr=lr)
+                uplink_codec=self.uplink_codec, lr=lr, noise=noise)
         if upload is not None:
             mean_w = tree_wmean_stacked(upload, arrived_mask * sizes)
             new_global, new_server_state = self.strategy.server_update(

@@ -22,9 +22,25 @@ Then the configured engine (``ServerConfig.engine``) trains:
                in chunks of ``client_chunk`` clients, uploads folded into
                a running fp32 sum by the dequant-accumulate kernel (K7).
 
-The strategy's server update runs, and ``CommLog`` charges the identity
-codec's exact wire bytes. All engines write state back only for the
-arrived clients, into host dicts (``client_states``, ``local_trees``).
+The strategy's server update runs, and ``CommLog`` charges the codecs'
+exact wire bytes. All engines write state back only for the arrived
+clients, into host dicts (``client_states``, ``local_trees``).
+
+Codecs (``repro_torch.fl.codecs``; ``ServerConfig.uplink_codec`` /
+``downlink_codec``, or the legacy ``uplink_quant`` / ``downlink_quant``
+single-stage specs): the broadcast is encoded and decoded once a round
+(``_encode_downlink``; the delta reference ``_down_ref`` and the error
+feedback ``_down_ef`` live on the server), and each client's upload is
+encoded against the decoded broadcast, its top-k error feedback
+threaded through ``client_states[cid]["_ef_up"]`` (stacked in the
+batched and streaming engines' client state). The int8 stage's rounding
+noise depends only on the round and the client's position in the
+round's sampled order (the downlink's position is ``0x7FFFFFFF``), as
+the reference's ``fold_in(PRNGKey(round), position)`` keys do, so the
+three engines quantize alike: by default it is drawn on the run's
+device from a ``torch.Generator`` seeded from (round, position);
+``FLServer(quant_noise=...)`` replaces the draw (a test hook that hands
+in the reference's noise).
 
 Personalization modes:
   none      — vanilla FL (upload/download everything)
@@ -44,13 +60,13 @@ Checkpoints are in the reference's format: either package reads the
 other's.
 
 Not ported yet, and refused at construction with the ROADMAP item that
-brings them: the async engine (A12), fleet traces, the arena store and
-chunked data (A10), codecs other than identity (A7), rank tiers,
-faults, defenses and round recovery (A11). A checkpoint that holds
-their state raises on restore.
+brings them: the async engine (A3), fleet traces, the arena store and
+chunked data (A4), rank tiers, faults, defenses and round recovery
+(A5). A checkpoint that holds their state raises on restore.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
@@ -108,12 +124,14 @@ def _to_plain(obj):
 
 # checkpoint sections of state the port does not carry yet
 _UNPORTED_SECTIONS = {
-    "down_ref": "downlink codec state (ROADMAP A7)",
-    "down_ef": "downlink codec state (ROADMAP A7)",
-    "arena": "the arena store (ROADMAP A10)",
-    "async": "the async engine's buffer (ROADMAP A12)",
-    "client_versions": "the async engine's client versions (ROADMAP A12)",
+    "arena": "the arena store (ROADMAP A4)",
+    "async": "the async engine's buffer (ROADMAP A3)",
+    "client_versions": "the async engine's client versions (ROADMAP A3)",
 }
+
+# the downlink's position in the int8 noise stream, apart from every
+# client's position in the round's sampled order (the reference's)
+DOWNLINK_POSITION = 0x7FFFFFFF
 
 
 @dataclass
@@ -130,7 +148,7 @@ class ServerConfig:
     personalization: str = "none"      # none | pfedpara | fedper | local
     uplink_quant: str = "fp32"         # legacy: fp32 | fp16 | int8
     downlink_quant: str = "fp32"       # legacy: fp32 | fp16 | int8
-    uplink_codec: str = ""             # codec spec (identity only so far)
+    uplink_codec: str = ""             # codec spec, e.g. "delta|topk0.1|int8"
     downlink_codec: str = ""           # overrides *_quant when non-empty
     oversample: float = 0.0            # straggler over-sampling fraction
     deadline_quantile: float = 0.9
@@ -163,7 +181,7 @@ def _refuse_unported(scfg: ServerConfig) -> None:
     """Raise for every setting whose machinery is not ported yet."""
     if scfg.engine == "async":
         raise NotImplementedError(
-            "engine 'async' is not ported yet (ROADMAP A12); the "
+            "engine 'async' is not ported yet (ROADMAP A3); the "
             "sequential, batched and streaming engines are")
     if scfg.engine not in ("sequential", "batched", "streaming"):
         raise ValueError(f"unknown engine {scfg.engine!r} (expected "
@@ -171,13 +189,13 @@ def _refuse_unported(scfg: ServerConfig) -> None:
     if scfg.personalization not in ("none", "pfedpara", "fedper", "local"):
         raise ValueError(f"unknown personalization {scfg.personalization!r}")
     unported = (
-        (scfg.trace is not None, "trace (fleet traces, ROADMAP A10)"),
-        (scfg.state_store != "dict", "state_store != 'dict' (ROADMAP A10)"),
-        (scfg.data_stream != "eager", "data_stream != 'eager' (ROADMAP A10)"),
-        (bool(scfg.gamma_tiers), "gamma_tiers (rank tiers, ROADMAP A11)"),
-        (scfg.faults is not None, "faults (ROADMAP A11)"),
-        (scfg.defense != "none", "defense != 'none' (ROADMAP A11)"),
-        (scfg.recover_retries > 0, "recover_retries > 0 (ROADMAP A11)"),
+        (scfg.trace is not None, "trace (fleet traces, ROADMAP A4)"),
+        (scfg.state_store != "dict", "state_store != 'dict' (ROADMAP A4)"),
+        (scfg.data_stream != "eager", "data_stream != 'eager' (ROADMAP A4)"),
+        (bool(scfg.gamma_tiers), "gamma_tiers (rank tiers, ROADMAP A5)"),
+        (scfg.faults is not None, "faults (ROADMAP A5)"),
+        (scfg.defense != "none", "defense != 'none' (ROADMAP A5)"),
+        (scfg.recover_retries > 0, "recover_retries > 0 (ROADMAP A5)"),
     )
     for bad, what in unported:
         if bad:
@@ -208,6 +226,14 @@ class FLServer:
             ``loss_fn_clients(params, batch) -> (C,)`` with every leaf
             and the batch leading with the client axis (e.g.
             ``nn.recurrent.mlp_loss_clients``).
+        quant_noise: optional ``quant_noise(round_idx, position, tree)
+            -> noise tree`` replacing the int8 stage's default draw (a
+            test hook): ``tree`` is one client's (unstacked) int8-stage
+            input, the result is shaped like it (U[-0.5, 0.5), tensors
+            or numpy arrays, moved to the run's device in each leaf's
+            dtype). ``position`` is the client's index in the round's
+            sampled order (pad slots follow the cohort), or
+            ``DOWNLINK_POSITION`` for the broadcast.
 
     After ``run()``: ``global_params`` holds the trained model,
     ``history`` the per-round records (participants, ``arrived_mask``,
@@ -228,6 +254,7 @@ class FLServer:
         eval_fn: Optional[Callable] = None,
         device: DeviceLike = None,
         loss_fn_clients: Optional[Callable] = None,
+        quant_noise: Optional[Callable] = None,
     ):
         _refuse_unported(server_cfg)
         self.device = resolve_device(device)
@@ -255,6 +282,9 @@ class FLServer:
             server_cfg.uplink_codec or server_cfg.uplink_quant)
         self.downlink_codec = codecs.make_codec(
             server_cfg.downlink_codec or server_cfg.downlink_quant)
+        self._down_ref: Any = None   # last decoded broadcast (delta ref)
+        self._down_ef: Any = None    # server-side downlink error feedback
+        self.quant_noise = quant_noise
         self._engine = self._stream = None
         if server_cfg.engine != "sequential" and loss_fn_clients is None:
             raise ValueError(f"engine {server_cfg.engine!r} trains through "
@@ -392,12 +422,43 @@ class FLServer:
         seeds = spawn_seeds(scfg.seed, self.round_idx, len(sampled))
         return sampled, mask, seeds, lr, probe_payload, lat
 
+    def _draw_noise(self, position: int, like: Any) -> Any:
+        """int8 rounding noise for one position's wire tree ``like``:
+        the ``quant_noise`` hook's, or U[-0.5, 0.5) from a generator on
+        the run's device seeded from (round, position)."""
+        if self.quant_noise is not None:
+            noise = self.quant_noise(self.round_idx, position, like)
+            return tree_map(lambda n, a: torch.as_tensor(n).to(
+                device=a.device, dtype=a.dtype), noise, like)
+        return comm.position_noise(like, self.round_idx, position,
+                                   self.device)
+
+    def _noise_stacked(self, positions) -> Callable:
+        """The noise source for a client stack: row ``i`` of every leaf
+        draws at ``positions[i]``, as that client alone would."""
+        return lambda like: tree_stack([
+            self._draw_noise(int(p), tree_index(like, i))
+            for i, p in enumerate(positions)])
+
     def _encode_downlink(self, payload: Any):
         """One broadcast encode/decode per round: the decoded payload
-        clients train on and its exact per-client wire bytes (the
-        identity codec hands the payload through)."""
+        clients train on and its exact per-client wire bytes. Advances
+        the delta reference (the last decoded broadcast, which clients
+        cache) and the downlink error feedback; the identity codec
+        hands the payload through."""
         codec = self.downlink_codec
-        decoded, _ = codec.encode_decode(payload)
+        if codec.is_identity:
+            return payload, codec.wire_bytes(payload)
+        if codec.has_delta and self._down_ref is None:
+            self._down_ref = tree_map(torch.zeros_like, payload)
+        if codec.has_ef and self._down_ef is None:
+            self._down_ef = codec.ef_init(payload)
+        wire, self._down_ef = codec.encode(
+            payload, ref=self._down_ref, ef=self._down_ef,
+            noise=functools.partial(self._draw_noise, DOWNLINK_POSITION))
+        decoded = codec.decode(wire, ref=self._down_ref)
+        if codec.has_delta:
+            self._down_ref = decoded
         return decoded, codec.wire_bytes(payload)
 
     def run_round(self) -> Dict:
@@ -462,7 +523,11 @@ class FLServer:
                 client_state=state, lr=lr)
             up = self._split_upload(cid, trained)
             if up is not None:
-                up, _ = up_codec.encode_decode(up, ref=down_dec)
+                up, new_ef = up_codec.encode_decode(
+                    up, ref=down_dec, ef=state.get("_ef_up"),
+                    noise=functools.partial(self._draw_noise, i))
+                if new_ef is not None:
+                    state = {**state, "_ef_up": new_ef}
                 uploads.append(up)
                 weights.append(float(len(self.partitions[cid])))
             self.client_states[cid] = state
@@ -487,12 +552,22 @@ class FLServer:
             "lr": lr,
         }
 
+    def _ensure_ef(self, state: Dict, payload: Any) -> Dict:
+        """Attach a zero uplink error-feedback accumulator (payload
+        structure) to a client state that does not have one yet."""
+        if self.uplink_codec.has_ef and "_ef_up" not in state:
+            state = {**state, "_ef_up": self.uplink_codec.ef_init(payload)}
+        return state
+
     def _prep_client_state(self, cid: int, params: Any, down_dec: Any) -> Dict:
         """Round-start client state: stored state or strategy init, with
-        the SCAFFOLD server control variate broadcast in."""
+        the uplink error feedback attached (unless nothing is uploaded)
+        and the SCAFFOLD server control variate broadcast in."""
         state = self.client_states.get(cid)
         if state is None:
             state = init_client_state(self.strategy, params)
+        if self.scfg.personalization != "local":
+            state = self._ensure_ef(state, down_dec)
         if self.strategy.name == "scaffold" and "c" in state:
             c = (tree_zeros(params) if not self.server_state
                  else self.server_state.get("c", tree_zeros(params)))
@@ -568,7 +643,8 @@ class FLServer:
             {k: torch.as_tensor(v, device=self.device)
              for k, v in batches.items()},
             self._tensor(step_mask), self._tensor(mask), self._tensor(sizes),
-            lr, self.server_state, agg_target, down_dec)
+            lr, self.server_state, agg_target, down_dec,
+            noise=self._noise_stacked(range(len(cids))))
         self._commit_stacked(cids, mask, new_state, local)
         if upload is not None and scfg.personalization != "local":
             self.server_state = new_server_state
@@ -616,7 +692,9 @@ class FLServer:
                     for k, v in batches.items()}),
             chunks(self._tensor(step_mask)), chunks(self._tensor(mask_pad)),
             chunks(self._tensor(sizes_pad)), lr, self.server_state,
-            agg_target, down_dec)
+            agg_target, down_dec,
+            noise_xs=[self._noise_stacked(range(i * chunk, (i + 1) * chunk))
+                      for i in range(n_chunks)])
         self._commit_stacked(cids, mask,
                              from_chunks(state_ys) if state_ys else {},
                              from_chunks(local_ys)
@@ -637,6 +715,10 @@ class FLServer:
                                 "server_state": self.server_state}
         if self._stale_ref is not None:
             tree["stale_ref"] = self._stale_ref
+        if self._down_ref is not None:
+            tree["down_ref"] = self._down_ref
+        if self._down_ef is not None:
+            tree["down_ef"] = self._down_ef
         if self.client_states:
             tree["client_states"] = {str(c): s for c, s
                                      in self.client_states.items()}
@@ -669,9 +751,11 @@ class FLServer:
         run's device and return the restored round index. Structure-free:
         the checkpoint's "/"-joined paths rebuild the nested dicts, so
         per-client state restores without knowing who participated.
-        Reads the reference's checkpoints too; one that holds state the
-        port does not carry yet (codec references, the arena, the async
-        buffer) raises ``NotImplementedError`` naming its ROADMAP item."""
+        Reads the reference's checkpoints too (codec state included: the
+        downlink's ``down_ref`` / ``down_ef`` and each client's
+        ``_ef_up``); one that holds state the port does not carry yet
+        (the arena, the async buffer) raises ``NotImplementedError``
+        naming its ROADMAP item."""
         by_path, extra, step = manager.restore_items(step)
         root = tree_to(unflatten_paths(by_path, listify=False), self.device)
         for section in _UNPORTED_SECTIONS:
@@ -682,6 +766,8 @@ class FLServer:
         self.global_params = root["global_params"]
         self.server_state = root.get("server_state", {})
         self._stale_ref = root.get("stale_ref")
+        self._down_ref = root.get("down_ref")
+        self._down_ef = root.get("down_ef")
         self.client_states = {int(c): s for c, s
                               in root.get("client_states", {}).items()}
         self.local_trees = {int(c): t for c, t

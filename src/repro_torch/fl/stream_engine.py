@@ -14,19 +14,24 @@ tree. This engine walks the cohort in fixed-size client **chunks**
      broadcast (plus the chunk's personalization residents), so no
      ``(C, model)`` params tree exists;
   3. uploads stay in the codec's encoded-for-aggregation form
-     (``Codec.encode_for_agg``) and are folded straight into a running
-     fp32 accumulator and weight total by the fused dequant-accumulate
-     kernel (K7, ``kernels.agg.tree_dequant_acc``: one launch per leaf
-     per chunk, in place); the ``(C, model)`` upload stack never exists;
+     (``Codec.encode_for_agg``: int8 ``{"q", "scale"}`` nodes, fp16 or
+     fp32 dense leaves; a low-rank stage composed back per client) and
+     are folded straight into a running fp32 accumulator and weight
+     total by the fused dequant-accumulate kernel (K7,
+     ``kernels.agg.tree_dequant_acc``: one launch per leaf per chunk,
+     in place, each wire value read at its wire width, an int8 node's
+     per-client scale folded into its coefficient); the ``(C, model)``
+     upload stack never exists;
   4. after the last chunk: mean = acc / max(wtot, 1e-12), then the
-     codec's ``agg_finalize`` and the strategy's ``server_update``.
+     codec's ``agg_finalize`` (which adds a delta codec's reference
+     back) and the strategy's ``server_update``.
 
 Pad slots (the cohort rounded up to whole chunks) carry aggregation
 weight 0, so K7 adds exact zeros for them. Chunking only reassociates
 the fp32 weighted sum: the result equals the batched engine's to fp32
 accumulation-order tolerance. Ported for homogeneous ranks, eager data
 and defense ``none``; rank tiers, chunked data, defenses, the arena and
-the two-level mesh reduction are ROADMAP A10, A11 and A15.
+the two-level mesh reduction are ROADMAP A4, A5 and A8.
 """
 from __future__ import annotations
 
@@ -63,11 +68,13 @@ class StreamingRound:
             self.uplink_codec = make_codec("")
 
     def run(self, state_xs, resident_xs, batches_xs, step_mask_xs, mask_xs,
-            sizes_xs, lr, server_state, agg_target, down_payload):
+            sizes_xs, lr, server_state, agg_target, down_payload,
+            noise_xs=None):
         """Execute one streaming round over chunk-stacked inputs: every
         ``*_xs`` leaf leads with ``(n_chunks, chunk, ...)``
         (:func:`to_chunks`); ``resident_xs`` is ``None`` without
-        personalization residents. Returns ``(state_ys, local_ys,
+        personalization residents; ``noise_xs`` lists each chunk's
+        uplink int8 noise source. Returns ``(state_ys, local_ys,
         loss_ys, steps_ys, new_global, new_server_state)``, the ``*_ys``
         chunk-stacked like the inputs."""
         codec = self.uplink_codec
@@ -87,7 +94,8 @@ class StreamingRound:
                     loss_fn=self.loss_fn, client_cfg=self.client_cfg,
                     strategy_name=self.strategy.name, personalization=mode,
                     fedper_local_keys=self.fedper_local_keys,
-                    uplink_codec=codec, lr=lr, encoded_upload=True)
+                    uplink_codec=codec, lr=lr, encoded_upload=True,
+                    noise=None if noise_xs is None else noise_xs[i])
             del new_p   # reassembled from the broadcast next round
             if upload is not None:
                 w = mask_xs[i] * sizes_xs[i]

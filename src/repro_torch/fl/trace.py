@@ -1,6 +1,6 @@
 """Per-client data seeds of a round (numpy), a copy of the reference's
 ``repro/fl/trace.py::spawn_seeds``. ``FleetTrace`` (trace-driven
-sampling) is not ported yet (ROADMAP A10)."""
+sampling) is not ported yet (ROADMAP A4)."""
 from __future__ import annotations
 
 import numpy as np

@@ -17,7 +17,10 @@ nodes, fp16 or fp32 dense leaves; ``Codec.encode_for_agg``) against a
 payload-structured fp32 accumulator tree, one launch per leaf, through
 ``repro_torch.kernels.ops.dequant_acc`` (the kernel on the card, the
 plain version on the host). The two-level ``sharded_tree_dequant_acc``
-of the reference waits for the distributed port (ROADMAP A15).
+of the reference waits for the distributed port (ROADMAP A8). The
+streaming engine feeds this walk what ``Codec.encode_for_agg`` yields,
+so int8, fp16 and fp32 wire all reach K7 on the main path;
+``ops.wire_launches`` counts its launches by wire type.
 
 :func:`dequant_acc` takes CUDA tensors only and launches
 unconditionally.

@@ -15,7 +15,9 @@ path went through the kernels (:func:`reset_launches` /
 (``*_clients``), apart from the 2-D calls of the sequential engine and
 of serving, so a run shows which path it took; likewise the compose
 of a layer-stacked node (K6, factors (L, ·, r)) counts under
-``fedpara_compose_stacked``, apart from the 2-D compose (K5).
+``fedpara_compose_stacked``, apart from the 2-D compose (K5). K7's
+launches are also counted by the wire type they read (int8, fp16 or
+fp32: :func:`wire_launches`), so a run shows which codec paths fed it.
 
 The fused matmul trains through ``kernels.fedpara_grad.FedParaMatmul``
 (K1/K2 forward, K3/K4 backward). The serve-only kernels (K8, K10) have
@@ -39,17 +41,28 @@ KERNELS = ("fedpara_matmul", "fedpara_dx", "fedpara_dfactors", "w8_matmul",
            "fedpara_dx_clients", "fedpara_dfactors_clients", "dequant_acc",
            "fedpara_compose", "fedpara_compose_stacked")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+WIRE_NAMES = {torch.int8: "int8", torch.float16: "fp16",
+              torch.float32: "fp32"}
+WIRE_LAUNCHES: Dict[str, int] = {k: 0 for k in WIRE_NAMES.values()}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count (and K7's by wire type) to 0."""
     for k in KERNELS:
         LAUNCHES[k] = 0
+    for k in WIRE_LAUNCHES:
+        WIRE_LAUNCHES[k] = 0
 
 
 def launches() -> Dict[str, int]:
     """A copy of the launch counts since the last reset."""
     return dict(LAUNCHES)
+
+
+def wire_launches() -> Dict[str, int]:
+    """A copy of K7's launch counts by wire type (int8 / fp16 / fp32)
+    since the last reset; they sum to ``launches()["dequant_acc"]``."""
+    return dict(WIRE_LAUNCHES)
 
 
 def resolve_kind(kind=None) -> str:
@@ -155,6 +168,7 @@ def dequant_acc(acc, q, coeff) -> torch.Tensor:
         return acc.copy_(ref.dequant_acc_ref(acc, q, coeff))
     _agg.dequant_acc(acc, q, coeff)
     LAUNCHES["dequant_acc"] += 1
+    WIRE_LAUNCHES[WIRE_NAMES[q.dtype]] += 1
     return acc
 
 

@@ -4,7 +4,7 @@ The counterpart of ``repro/launch/train.py --mode fl --model mlp``: the
 784-256-10 MLP (``kind``/``gamma`` from ``--param``/``--gamma``,
 factorized where that saves parameters) trains on a synthetic 28x28
 10-class image set split over ``--clients`` clients by a Dirichlet(0.5)
-draw, through ``FLServer`` with identity codecs. Each round prints its
+draw, through ``FLServer``. Each round prints its
 record; the run ends with the reference's final JSON record (the last
 round's, plus ``comm_up_mb`` / ``comm_down_mb``).
 
@@ -14,7 +14,15 @@ round's, plus ``comm_up_mb`` / ``comm_down_mb``).
   ``--use-kernels``); ``streaming`` runs it in chunks of
   ``--client-chunk`` clients and folds the uploads with the
   dequant-accumulate kernel (K7); ``sequential`` trains the clients one
-  after another. ``async`` is not ported yet (ROADMAP A12) and raises.
+  after another. ``async`` is not ported yet (ROADMAP A3) and raises.
+* ``--uplink-codec`` / ``--downlink-codec`` take the reference's codec
+  specs (``repro_torch.fl.codecs``: delta, topk<f>, lowrank<r>, int8,
+  fp16, e.g. ``"delta|topk0.1|int8"``) on every engine; the streaming
+  engine folds int8 and fp16 uplinks through K7 at their wire width.
+* ``--param`` picks the parameterization: ``fedpara`` (default),
+  ``fedpara_tanh``, ``pfedpara``, ``lowrank`` (the conventional X Yᵀ
+  baseline at twice the FedPara rank, materialized then multiplied, no
+  kernel) or ``original``.
 
 * ``--device`` defaults to ``cuda`` and raises without a card; pass
   ``--device cpu`` to run the plain PyTorch versions on the host.
@@ -30,10 +38,12 @@ round's, plus ``comm_up_mb`` / ``comm_down_mb``).
   ``jax.random``-initialized MLP), so a port run can match a reference
   run record for record; without it the port draws its own seeded init.
 
+``main(argv, quant_noise=...)`` passes the server's int8 noise hook
+through (``FLServer(quant_noise=...)``, a test hook; not a flag).
+
 Not ported yet: ``--mode pods`` (ROADMAP A8; the default mode, as in the
-reference, so an FL run passes ``--mode fl``), the async engine
-(A12), codecs other than identity (A7), rank tiers, faults and defenses
-(A11).
+reference, so an FL run passes ``--mode fl``), the async engine (A3),
+rank tiers, faults and defenses (A5).
 
     python -m repro_torch.launch.train --mode fl --model mlp --rounds 3 \\
         --clients 20 --use-kernels --engine streaming --client-chunk 4
@@ -43,7 +53,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -75,8 +85,10 @@ def _mlp_loss_clients(cfg, p, b):
     return rec.mlp_loss_clients(p, cfg, b)
 
 
-def build_fl(args: argparse.Namespace) -> FLServer:
-    """The configured FLServer on ``args.device`` (not yet run)."""
+def build_fl(args: argparse.Namespace,
+             quant_noise: Optional[Callable] = None) -> FLServer:
+    """The configured FLServer on ``args.device`` (not yet run);
+    ``quant_noise`` is the server's int8 noise hook."""
     if args.model != "mlp":
         raise SystemExit("--mode fl supports --model mlp (the LSTM and VGG "
                          "models are not ported yet)")
@@ -111,7 +123,8 @@ def build_fl(args: argparse.Namespace) -> FLServer:
                                  engine=args.engine,
                                  client_chunk=args.client_chunk),
                     eval_fn=eval_fn, device=dev,
-                    loss_fn_clients=functools.partial(_mlp_loss_clients, cfg))
+                    loss_fn_clients=functools.partial(_mlp_loss_clients, cfg),
+                    quant_noise=quant_noise)
 
 
 def final_record(srv: FLServer) -> Dict[str, Any]:
@@ -139,14 +152,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--personalization", default="none",
                     choices=["none", "pfedpara", "fedper", "local"])
     ap.add_argument("--uplink-codec", default="",
-                    help="identity only ('' / fp32 / none / identity)")
+                    help="uplink codec spec, e.g. 'delta|topk0.1|int8' "
+                         "(stages: delta, topk<f>, lowrank<r>, int8, fp16)")
     ap.add_argument("--downlink-codec", default="",
-                    help="identity only ('' / fp32 / none / identity)")
+                    help="downlink codec spec (same grammar); applied to "
+                         "the payload clients actually train on")
     ap.add_argument("--engine", default="batched",
                     choices=["sequential", "batched", "streaming", "async"],
                     help="FL round engine: the sequential loop, the "
                          "client-batched program, or the streaming chunked "
-                         "rounds (async is not ported yet: ROADMAP A12)")
+                         "rounds (async is not ported yet: ROADMAP A3)")
     ap.add_argument("--client-chunk", type=int, default=16,
                     help="streaming engine: clients per chunk; round memory "
                          "peaks at O(client_chunk * model)")
@@ -169,16 +184,18 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[Sequence[str]] = None, *,
+         quant_noise: Optional[Callable] = None) -> Dict[str, Any]:
     """Run the CLI; returns ``{"record", "server", "round_seconds"}``
     (the printed final record, the trained FLServer and each round's
-    host wall time, synchronized with the card)."""
+    host wall time, synchronized with the card). ``quant_noise`` is
+    handed to ``FLServer`` (its int8 noise hook)."""
     args = parser().parse_args(argv)
     if args.mode == "pods":
         raise SystemExit("--mode pods (the transformer pod trainer, the "
                          "default as in the reference) is not ported yet: "
                          "ROADMAP A8; pass --mode fl")
-    srv = build_fl(args)
+    srv = build_fl(args, quant_noise)
     ckpt = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     if args.resume:
         if ckpt is None:

@@ -15,6 +15,11 @@ layouts the engine writes (``repro_torch.serve.cache``):
   (``ops.fedpara_matmul``);
 * factor nodes with injected ``ux2/uy2`` — the per-user Gram path.
 
+A low-rank ``{'x', 'y'}`` node, Prop.-3 conv factors ``{'t1', ...}``
+and Tucker-2 conv factors ``{'t', 'x', 'y'}`` are materialized and
+multiplied (or convolved), as the reference does: no kernel exists for
+them.
+
 ``use_kernels=False`` is the reference's plain path (materialize W, then
 a matmul): the oracle the serve tests merge users into, and the plain
 training path. With ``use_kernels`` a factor node trains through
@@ -39,7 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ParamCfg
 from repro_torch.core import parameterization as par
-from repro_torch.core import rank_policy
+from repro_torch.core import rank_policy, tensor_fedpara
 from repro_torch.kernels import ops, ref
 
 FUSED_KINDS = ("fedpara", "fedpara_tanh", "pfedpara")
@@ -56,6 +61,13 @@ def materialize_auto(sub: Dict[str, torch.Tensor], kind_hint: str,
     if "w" in sub:
         w = sub["w"]
         return w.to(dtype) if dtype is not None else w
+    if "t1" in sub:   # Prop.-3 conv factors
+        k = kind_hint if kind_hint in ("fedpara", "fedpara_tanh") else "fedpara"
+        return tensor_fedpara.materialize_conv(sub, k, dtype)
+    if "t" in sub:    # Tucker-2 low-rank conv
+        return tensor_fedpara.materialize_conv(sub, "lowrank", dtype)
+    if "x" in sub:    # low-rank baseline: no kernel, W = X Yᵀ
+        return par.compose_lowrank(sub, dtype)
     if "x1" in sub:
         k = kind_hint if kind_hint in FUSED_KINDS else "fedpara"
         return par.materialize(sub, k, dtype)

@@ -294,7 +294,7 @@ def test_unported_sections_raise_naming_their_item(tmp_path):
     CheckpointManager(str(tmp_path)).save(
         1, {**tree, "arena": {"participation": np.zeros(8, np.int32)}},
         extra={"round_idx": 1, "rng": [], "comm": [0, 0, 0], "history": []})
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A4"):
         srv.restore_checkpoint(CheckpointManager(str(tmp_path)))
 
 

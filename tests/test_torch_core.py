@@ -321,18 +321,20 @@ def test_train_cli_defaults_to_the_reference_mode(monkeypatch):
 
 
 def test_lowrank_kind_is_refused_by_its_roadmap_item():
-    """The reference supports ``kind="lowrank"``; the port refuses it
-    with ``NotImplementedError`` naming ROADMAP A2, while a truly unknown
-    kind keeps its ``ValueError``."""
+    """The low-rank kind is ported (ROADMAP A2's core math): the port's
+    init has the reference's layout at twice the FedPara rank, and its
+    materialize equals the reference's on the reference's factors; a
+    truly unknown kind keeps its ``ValueError``."""
     jnode = jpar.init_linear(jax.random.PRNGKey(0), 16, 12, kind="lowrank",
                              gamma=0.3)
-    assert jpar.materialize(jnode, "lowrank").shape == (16, 12)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A2"):
-        par.init_linear(gen, 16, 12, kind="lowrank", gamma=0.3)
+    mine = par.init_linear(gen, 16, 12, kind="lowrank", gamma=0.3)
+    assert {k: tuple(v.shape) for k, v in mine.items()} == \
+        {k: tuple(v.shape) for k, v in jnode.items()}
     node = interop.from_jax_params(jax.tree.map(np.asarray, jnode))
-    with pytest.raises(NotImplementedError, match="A2"):
-        par.materialize(node, "lowrank")
+    np.testing.assert_allclose(par.materialize(node, "lowrank").numpy(),
+                               np.asarray(jpar.materialize(jnode, "lowrank")),
+                               rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="unknown parameterization kind"):
         par.init_linear(gen, 16, 12, kind="bogus")
     with pytest.raises(ValueError, match="unknown parameterization kind"):

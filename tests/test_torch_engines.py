@@ -655,6 +655,6 @@ def test_train_cli_engines_match_reference_record(tmp_path, engine,
 def test_train_cli_defaults_to_the_batched_engine():
     args = train.parser().parse_args(["--mode", "fl"])
     assert (args.engine, args.client_chunk) == ("batched", 16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A3"):
         train.main(["--mode", "fl", "--rounds", "1", "--engine", "async",
                     "--device", "cpu"])

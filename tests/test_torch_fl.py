@@ -141,16 +141,20 @@ def test_mlp_init_matches_reference_layout_and_counts(kind):
 
 
 def test_codec_is_identity_only_and_prices_bytes_exactly():
+    """The identity specs give the identity codec; every other stage
+    parses as the reference's does (``tests/test_torch_codecs.py`` holds
+    the stages themselves) and prices the MLP's bytes exactly."""
     for spec in ("", "fp32", "none", "identity"):
         c = codecs.make_codec(spec)
         assert c.is_identity and not c.has_ef and not c.has_delta
-    for spec in ("int8", "delta|topk0.1|int8", "fp16"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            codecs.make_codec(spec)
     _, params, _ = make_model("fedpara")
-    assert codecs.make_codec("").wire_bytes(
-        interop.from_jax_params(_np(params))) == \
-        jmake_codec("").wire_bytes(params)
+    for spec in ("", "int8", "delta|topk0.1|int8", "fp16"):
+        c, jc = codecs.make_codec(spec), jmake_codec(spec)
+        assert [(st.kind, st.param) for st in c.stages] == \
+            [(st.kind, st.param) for st in jc.stages]
+        assert (c.has_ef, c.has_delta) == (jc.has_ef, jc.has_delta)
+        assert c.wire_bytes(interop.from_jax_params(_np(params))) == \
+            jc.wire_bytes(params), spec
 
 
 # ------------------------------------------------------- local update
@@ -304,16 +308,25 @@ def test_fl_server_refuses_what_is_not_ported():
     params = interop.from_jax_params(_np(jparams))
     args = (lambda p, b: 0.0, params, get_task()["tr"], get_task()["parts"],
             make_strategy("fedavg"), client.ClientConfig())
-    for kw, item in (({"engine": "async"}, "A12"),
-                     ({"state_store": "arena", "engine": "batched"}, "A10"),
+    for kw, item in (({"engine": "async"}, "A3"),
+                     ({"state_store": "arena", "engine": "batched"}, "A4"),
                      ({"data_stream": "chunked", "engine": "streaming"},
-                      "A10"),
-                     ({"gamma_tiers": (0.1, 0.3)}, "A11"),
-                     ({"defense": "clip"}, "A11"),
-                     ({"recover_retries": 1}, "A11"),
-                     ({"uplink_codec": "int8"}, "A7")):
+                      "A4"),
+                     ({"gamma_tiers": (0.1, 0.3)}, "A5"),
+                     ({"defense": "clip"}, "A5"),
+                     ({"recover_retries": 1}, "A5")):
         with pytest.raises(NotImplementedError, match=item):
             FLServer(*args, ServerConfig(**kw), device="cpu")
+    # codecs are ported: an int8 uplink (the spec or the legacy field)
+    # builds the reference's codec and charges the reference's bytes
+    for kw in ({"uplink_codec": "int8"}, {"uplink_quant": "int8"}):
+        srv = FLServer(*args, ServerConfig(**kw), device="cpu")
+        ref = JFLServer(lambda p, b: 0.0, jparams, get_task()["tr"],
+                        get_task()["parts"], jmake_strategy("fedavg"),
+                        jclient.ClientConfig(), JServerConfig(**kw))
+        assert srv.uplink_codec.spec == ref.uplink_codec.spec == "int8"
+        assert srv.uplink_codec.wire_bytes(params) == \
+            ref.uplink_codec.wire_bytes(jparams)
 
 
 # ----------------------------------------------------------------- CLI
